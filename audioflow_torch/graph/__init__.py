@@ -1,0 +1,9 @@
+"""Flow-graph layer: nodes, offline chains and streaming."""
+
+from .graph import Graph, chain
+from .nodes import LogMelSpec, MelProject, Node, Resample, Spectrogram, node_registry, register_node
+
+__all__ = [
+    "Graph", "LogMelSpec", "MelProject", "Node", "Resample", "Spectrogram",
+    "chain", "node_registry", "register_node",
+]
