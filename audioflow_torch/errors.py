@@ -12,6 +12,7 @@ import enum
 class ErrorCode(enum.Enum):
     """Stable, machine-readable error codes (same strings as the JAX package)."""
 
+    DEVICE_NOT_FOUND = "DEVICE_NOT_FOUND"
     KERNEL_COMPILATION_FAILED = "KERNEL_COMPILATION_FAILED"
     RESAMPLING_FAILED = "RESAMPLING_FAILED"
     SHAPE_MISMATCH = "SHAPE_MISMATCH"

@@ -1,9 +1,19 @@
 """Flow-graph layer: nodes, offline chains and streaming."""
 
 from .graph import Graph, chain
-from .nodes import LogMelSpec, MelProject, Node, Resample, Spectrogram, node_registry, register_node
+from .nodes import (
+    LogMelSpec,
+    MelProject,
+    Node,
+    PitchShift,
+    Resample,
+    Spectrogram,
+    TimeStretch,
+    node_registry,
+    register_node,
+)
 
 __all__ = [
-    "Graph", "LogMelSpec", "MelProject", "Node", "Resample", "Spectrogram",
-    "chain", "node_registry", "register_node",
+    "Graph", "LogMelSpec", "MelProject", "Node", "PitchShift", "Resample", "Spectrogram",
+    "TimeStretch", "chain", "node_registry", "register_node",
 ]

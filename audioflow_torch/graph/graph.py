@@ -28,6 +28,7 @@ import torch
 
 from ..errors import AudioError, ConfigError, ErrorCode
 from ..ops.stft import pad_center
+from ..utils import as_tensor
 from .nodes import Node, Spectrogram
 
 
@@ -91,21 +92,22 @@ class Graph:
     _CHUNKED_MIN_T = 65536
 
     def compile(self, chunked: bool | str = "auto") -> Callable:
-        """The offline function ``x [..., T] -> output``.
+        """The offline function ``fn(x, device=None) -> output``.
 
+        ``x [..., T]`` is a tensor, or a numpy array that goes to ``device``
+        ("cuda" unless given; see :func:`audioflow_torch.utils.as_tensor`).
         ``chunked`` — long-signal execution strategy: the same chain run as a
         loop over fixed chunks through the streaming machinery, trimmed to
         the offline output. ``"auto"`` (default) picks the chunked form when
         the graph is streamable and the input is long; ``True``/``False``
         force it.
         """
-        if chunked is False:
-            return self.chain
-        chunkable = self.streamable or self._decentered() is not None
+        chunkable = chunked is not False and (self.streamable or self._decentered() is not None)
         if chunked is True and not chunkable:
             self._check_streamable()
 
-        def run(x):
+        def run(x, device=None):
+            x = as_tensor(x, device)
             use = chunkable and (chunked is True or x.shape[-1] >= self._CHUNKED_MIN_T)
             return self._chunked_chain(x) if use else self.chain(x)
 
@@ -319,13 +321,15 @@ class Graph:
             new_pendings.append(pending)
         return (new_carries, new_pendings, k + 1), x
 
-    def scan_stream(self, x: torch.Tensor, chunk_in: int) -> torch.Tensor:
+    def scan_stream(self, x, chunk_in: int, device=None) -> torch.Tensor:
         """Stream a whole signal: a loop of :meth:`stream_step` over chunks.
 
-        ``x [..., T]`` with T a multiple of chunk_in. Output chunks are
-        concatenated along the streamed axis.
+        ``x [..., T]`` with T a multiple of chunk_in, a tensor or a numpy
+        array that goes to ``device`` (as in :meth:`compile`). Output chunks
+        are concatenated along the streamed axis.
         """
         self._check_streamable()
+        x = as_tensor(x, device)
         t = x.shape[-1]
         if t % chunk_in:
             raise AudioError(

@@ -23,6 +23,7 @@ import torch
 from ..errors import AudioError, ErrorCode
 from ..ops.kernels.melspec import mel_spectrogram
 from ..ops.mel import apply_mel, cached_filterbank, log_mel
+from ..ops.phase_vocoder import pitch_shift, time_stretch
 from ..ops.resample import (
     make_stream_plan,
     resample,
@@ -291,3 +292,33 @@ class MelProject(Node):
         if self.log is None:
             return apply_mel(x, fb)
         return log_mel(x, fb, self.floor, self.log)
+
+
+@register_node
+@dataclass(frozen=True)
+class TimeStretch(Node):
+    """Phase-vocoder time stretch (offline; changes duration). On the card
+    it runs the fused CUDA kernel where ``time_stretch`` supports the rate."""
+
+    rate: float = 1.0
+    n_fft: int = 1024
+    hop: int = 256
+    streamable = False
+
+    def apply(self, x):
+        return time_stretch(x, self.rate, self.n_fft, self.hop)
+
+
+@register_node
+@dataclass(frozen=True)
+class PitchShift(Node):
+    """Pitch shift by ``semitones`` (offline): time stretch, then resample."""
+
+    semitones: float = 0.0
+    sample_rate: int | None = None
+    n_fft: int = 1024
+    hop: int = 256
+    streamable = False
+
+    def apply(self, x):
+        return pitch_shift(x, self.semitones, self.sample_rate, self.n_fft, self.hop)

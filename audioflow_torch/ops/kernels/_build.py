@@ -51,31 +51,51 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _library(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _compile(names) -> None:
+    """Build the libraries of ``names`` that are not on disk yet, one nvcc per
+    source, all started together; the caller holds ``_LOCK``."""
+    todo = {name: _library(name) for name in dict.fromkeys(names)}
+    todo = {name: so for name, so in todo.items() if not so.exists()}
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    for name, so in todo.items():
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        BUILD_LOG[name] = proc.communicate()[0]
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{BUILD_LOG[name]}")
+        else:
+            os.replace(tmp, todo[name])  # atomic: another process never loads half a file
+    if failed:
+        raise AudioError("\n".join(failed), code=ErrorCode.KERNEL_COMPILATION_FAILED)
+
+
+def build(*names: str) -> None:
+    """Build the sources ``csrc/<name>.cu`` now, in parallel, instead of at
+    their first launch."""
+    with _LOCK:
+        _compile(names)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu``, building it if needed."""
     with _LOCK:
         lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"lib{name}-{digest}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True, check=False,
-            )
-            BUILD_SECONDS[name] = time.perf_counter() - t0
-            BUILD_LOG[name] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise AudioError(
-                    f"nvcc failed on {src.name} (exit {proc.returncode}):\n{BUILD_LOG[name]}",
-                    code=ErrorCode.KERNEL_COMPILATION_FAILED,
-                )
-            os.replace(tmp, so)  # atomic: another process never loads half a file
-        lib = ctypes.CDLL(str(so))
-        _LIBS[name] = lib
+        if lib is None:
+            _compile([name])
+            lib = _LIBS[name] = ctypes.CDLL(str(_library(name)))
         return lib

@@ -1,9 +1,12 @@
-"""Power/magnitude spectrogram as two matmuls against windowed DFT banks.
+"""STFT, ISTFT and the power/magnitude spectrogram as matmuls against
+host-designed DFT banks.
 
-The windowed real-DFT banks are host-side float64 designs copied bit for bit
-from ``audioflow_tpu/ops/stft.py::_dft_banks``. Folding the analysis window
-into the banks makes the spectrogram ``frames @ cos`` and ``frames @ sin``:
-no window multiply and no complex arithmetic.
+The windowed real-DFT banks (``_dft_banks``) and the inverse banks
+(``_idft_banks``) are float64 designs copied bit for bit from
+``audioflow_tpu/ops/stft.py``. Folding the analysis window into the banks
+makes the spectrogram ``frames @ cos`` and ``frames @ sin``: no window
+multiply. The inverse is ``Re @ ci + Im @ si``, then the synthesis window,
+overlap-add and the window-square (WOLA) normalisation.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 
 from ..utils.cache import BoundedCache, on_device
 from ._mm import mm
-from .framing import frame
+from .framing import frame, overlap_add
 from .windows import get_window
 
 # windowed-DFT bank variants, ~n_fft*(n_fft//2+1)*4 B each (8 MB at 2048)
@@ -25,6 +28,22 @@ _BANK_CACHE = BoundedCache(maxsize=64)
 IMPLS = ("matmul", "folded", "fourstep", "onedot", "radix2", "fft")
 
 
+def padded_window(n_fft: int, window: str, win_length: int | None = None) -> np.ndarray:
+    """The periodic float64 window of ``win_length`` (default n_fft),
+    centre-padded with zeros to n_fft. Cached: callers must not write to it."""
+    key = ("window", n_fft, window, win_length)
+    if key not in _BANK_CACHE:
+        wl = win_length or n_fft
+        if wl > n_fft:
+            raise ValueError("win_length must be <= n_fft")
+        w = get_window(window, wl, periodic=True)
+        if wl < n_fft:
+            pad = n_fft - wl
+            w = np.pad(w, (pad // 2, pad - pad // 2))
+        _BANK_CACHE[key] = w
+    return _BANK_CACHE[key]
+
+
 def _dft_banks(n_fft: int, window: str, win_length: int | None):
     """Windowed real-DFT banks: cos/sin matrices [n_fft, n_fft//2+1], f64-designed.
 
@@ -33,11 +52,7 @@ def _dft_banks(n_fft: int, window: str, win_length: int | None):
     """
     key = (n_fft, window, win_length)
     if key not in _BANK_CACHE:
-        wl = win_length or n_fft
-        w = get_window(window, wl, periodic=True)
-        if wl < n_fft:
-            pad = n_fft - wl
-            w = np.pad(w, (pad // 2, pad - pad // 2))
+        w = padded_window(n_fft, window, win_length)
         n_bins = n_fft // 2 + 1
         k = np.arange(n_fft, dtype=np.float64)[:, None] * np.arange(n_bins)[None, :]
         ang = 2.0 * np.pi * k / n_fft
@@ -93,3 +108,100 @@ def spectrogram(
     im = mm(frames, sinb.to(dtype), precision)
     p = re * re + im * im
     return p if power else torch.sqrt(p)
+
+
+def stft(
+    x: torch.Tensor,
+    n_fft: int = 1024,
+    hop: int = 256,
+    win_length: int | None = None,
+    window: str = "hann",
+    center: bool = True,
+    pad_mode: str = "reflect",
+    dtype=torch.float32,
+    impl: str = "fft",
+    precision: str | None = None,
+) -> torch.Tensor:
+    """Short-time Fourier transform of ``x [..., T]``: a complex64
+    spectrogram ``[..., n_frames, n_fft // 2 + 1]`` (frame axis first).
+
+    Every ``impl`` name of the JAX package runs the same two-matmul form
+    (see :data:`IMPLS`); ``precision`` is accepted for parity (fp32 always).
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"unknown stft impl {impl!r}; known: {', '.join(IMPLS)}")
+    if center:
+        x = pad_center(x, n_fft, pad_mode)
+    frames = frame(x.to(dtype), n_fft, hop)
+    cosb, sinb = dft_banks(n_fft, window, win_length, x.device)
+    return torch.complex(mm(frames, cosb.to(dtype), precision), mm(frames, sinb.to(dtype), precision))
+
+
+def magnitude(spec: torch.Tensor) -> torch.Tensor:
+    return spec.abs()
+
+
+def power(spec: torch.Tensor) -> torch.Tensor:
+    return spec.real**2 + spec.imag**2
+
+
+def _idft_banks(n_fft: int):
+    """Inverse real-DFT banks: irfft(X) == Re(X) @ ci + Im(X) @ si."""
+    key = ("idft", n_fft)
+    if key not in _BANK_CACHE:
+        n_bins = n_fft // 2 + 1
+        k = np.arange(n_bins, dtype=np.float64)[:, None]
+        n = np.arange(n_fft, dtype=np.float64)[None, :]
+        ang = 2.0 * np.pi * k * n / n_fft
+        weights = np.full((n_bins, 1), 2.0)
+        weights[0] = 1.0
+        if n_fft % 2 == 0:
+            weights[-1] = 1.0
+        ci = (weights * np.cos(ang) / n_fft).astype(np.float32)
+        si = (-weights * np.sin(ang) / n_fft).astype(np.float32)
+        _BANK_CACHE[key] = (ci, si)
+    return _BANK_CACHE[key]
+
+
+def frames_from_spec(
+    spec: torch.Tensor, n_fft: int, impl: str = "fft", dtype=torch.float32,
+    precision: str | None = None,
+) -> torch.Tensor:
+    """Inverse real DFT of spectral frames ``[..., F, n_bins]`` ->
+    ``[..., F, n_fft]``. ``impl`` "fft" and "matmul" both run the two-matmul
+    form."""
+    if impl not in ("fft", "matmul"):
+        raise ValueError(f"unknown istft impl {impl!r}; known: fft, matmul")
+    ci, si = (on_device(b, spec.device).to(dtype) for b in _idft_banks(n_fft))
+    return mm(spec.real.to(dtype), ci, precision) + mm(spec.imag.to(dtype), si, precision)
+
+
+def istft(
+    spec: torch.Tensor,
+    n_fft: int = 1024,
+    hop: int = 256,
+    win_length: int | None = None,
+    window: str = "hann",
+    center: bool = True,
+    length: int | None = None,
+    dtype=torch.float32,
+    impl: str = "fft",
+    precision: str | None = None,
+) -> torch.Tensor:
+    """Inverse STFT with synthesis-window (WOLA) normalisation.
+
+    ``length`` trims/defines the output sample count; defaults to
+    ``n_frames * hop`` for center=True.
+    """
+    w = on_device(padded_window(n_fft, window, win_length), spec.device).to(dtype)
+    n = spec.shape[-2]
+    frames = frames_from_spec(spec, n_fft, impl, dtype, precision)
+    y = overlap_add(frames * w, hop)
+    # the window-square normaliser is the same for every row: one [n, n_fft] overlap-add
+    wsq = overlap_add((w * w).expand(n, n_fft), hop)
+    y = y / torch.clamp_min(wsq, 1e-11)
+    if not center:
+        return y if length is None else y[..., :length]
+    if length is None:
+        length = n * hop
+    return y[..., n_fft // 2 : n_fft // 2 + length]

@@ -1,8 +1,14 @@
-"""Small shared utilities: rational-rate math."""
+"""Small shared utilities: rational-rate math, and input placement for the
+entry points."""
 
 from __future__ import annotations
 
 import math
+
+import numpy as np
+import torch
+
+from ..errors import AudioError, ErrorCode
 
 
 def rational_rate(input_rate: int, output_rate: int) -> tuple[int, int]:
@@ -18,3 +24,23 @@ def rational_rate(input_rate: int, output_rate: int) -> tuple[int, int]:
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def as_tensor(x, device: torch.device | str | None = None) -> torch.Tensor:
+    """``x`` as a tensor for an entry point of the port.
+
+    A tensor stays on its own device unless ``device`` names another. Other
+    input (a numpy array from the ``io`` loaders, a list) becomes float32,
+    the JAX package's default dtype, on ``device``: "cuda" unless the caller
+    asks for another, since the port runs on the card. Without a visible card
+    that default raises: it never carries on on the CPU unasked.
+    """
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(device)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise AudioError(
+            "no CUDA card is visible; pass device='cpu' to run on the CPU",
+            code=ErrorCode.DEVICE_NOT_FOUND,
+        )
+    return torch.tensor(np.asarray(x, dtype=np.float32), device=dev)

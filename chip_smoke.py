@@ -1,18 +1,31 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
-Drives the port's main path, the log-mel frontend
+Drives the port's two ported paths through the hand-written CUDA kernels
+and checks them. The log-mel frontend
 ``log_mel_frontend(44100, 16000, 1024, 256, 128, center=False)`` streamed in
-14,112-sample chunks over a 512 x 10 s tone batch, through the hand-written
-CUDA kernel, and checks it. Phases, each printing its own line:
+14,112-sample chunks over a 512 x 10 s tone batch (kernel ``melspec``), and
+BASELINE config 4, time-stretch and pitch-shift, offline through
+``Graph.compile()`` on a 64 x 10 s 16 kHz tone batch (kernel
+``timestretch``). Phases, each printing its own line:
 
 1. device: the ``nvidia-smi`` name and power-limit line;
-2. build: the kernels built from ``audioflow_torch/csrc`` and the seconds taken;
-3. kernel vs plain: each kernel against its plain torch version at the main
-   path's step shape, with the tolerance stated below;
-4. slice: the streamed frontend's shape, finiteness, launch count, and
-   agreement with the plain two-node graph (Spectrogram + MelProject);
-5. timing: the slice, kernel path and plain path, in audio-seconds per
-   second, timed with CUDA events.
+2. build: both kernels built from ``audioflow_torch/csrc``, one nvcc per
+   source started together, with the seconds taken and ptxas's registers
+   and spills;
+3. melspec kernel vs plain at the main path's step shape;
+4. melspec slice: shape, finiteness, launch count, and agreement with the
+   plain two-node graph (Spectrogram + MelProject);
+5. melspec timing: the slice, kernel path and plain path, in audio-seconds
+   per second, timed with CUDA events;
+6. timestretch kernel vs plain: at the ``pvoc`` shape (rate 1.25), at the
+   ``pitch`` stretch's (rate 0.5, all 64 rows), and at rates 0.8, 2/3 and
+   2.0 on 8 rows, every sample;
+7. time-stretch slice: the ``TimeStretch(1.25)`` and ``PitchShift(12.0)``
+   graphs (one launch each), the kernel-vs-matmul gate of the JAX
+   package's validate, and the pitch-doubling probe;
+8. time-stretch timing: ``time_stretch`` and ``pitch_shift`` on the kernel
+   path and the matmul path, and the kernel per call against its plain
+   version and its bound.
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a card, or
@@ -24,6 +37,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,16 +57,34 @@ KERNEL_TOL = 1e-4
 # tone) into larger absolute steps; the JAX package's own kernel-vs-XLA gate
 # in log-mel space is 5e-3 (validate.py, melspec_pallas_vs_xla_logmel)
 SLICE_TOL = 1e-3
+# time stretch: 64 x 10 s at 16 kHz (audioflow_tpu/bench.py pvoc and pitch)
+PVOC_BATCH = 64
+PVOC_RATE = 16000
+# kernel vs plain version, max|d| / max|plain| over every sample: fp32 sums
+# in another order, carried through the phase product
+STRETCH_TOL = 1e-4
+# kernel path vs matmul path on a 1 s tone + noise over all but the last
+# 1024 samples: the JAX package's validate gate (pvoc_pallas_vs_xla_rel);
+# the two phase forms accumulate in different orders, and the tail frame
+# follows different conventions
+PVOC_GATE = 6e-3
+# the card's published peaks (H100 SXM data sheet): fp32 outside the tensor
+# cores, and device memory
+FP32_FLOPS = 67e12
+HBM_BYTES_S = 3.35e12
 
 
-def tone_batch(batch: int, seconds: float, rate: int, seed: int = 0) -> np.ndarray:
-    """A copy of ``audioflow_tpu/bench.py::_tone_batch``: random tones plus noise."""
-    rng = np.random.default_rng(seed)
-    t = np.arange(int(seconds * rate), dtype=np.float32) / rate
-    freqs = rng.uniform(80, 4000, batch).astype(np.float32)
-    x = 0.3 * np.sin(2 * np.pi * freqs[:, None] * t[None, :])
-    x += 0.05 * rng.standard_normal((batch, t.size)).astype(np.float32)
-    return x.astype(np.float32)
+def rfft_flops(n: int) -> float:
+    """Operations of one real FFT of ``n`` points: half a complex FFT's
+    5·n·log2(n). The bounds count the function's FFTs, not the dense DFT
+    products that the kernels compute."""
+    return 2.5 * n * math.log2(n)
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take, and what bounds it."""
+    t_ops, t_mem = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
 def check(ok: bool, what: str) -> None:
@@ -78,10 +110,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; the port's smoke test runs only on one", file=sys.stderr)
         return 1
+    from audioflow_torch.graph import Graph, PitchShift, TimeStretch
     from audioflow_torch.models import log_mel_frontend
-    from audioflow_torch.ops.kernels import _build, melspec
+    from audioflow_torch.ops import pitch_shift, time_stretch
+    from audioflow_torch.ops.kernels import _build, melspec, timestretch
     from audioflow_torch.ops.mel import cached_filterbank
     from audioflow_torch.ops.stft import dft_banks
+    from audioflow_torch.profiling import tone_batch
     from audioflow_torch.utils.cache import on_device
 
     dev = torch.device("cuda")
@@ -93,14 +128,20 @@ def main() -> int:
     print(f"phase 1 device: torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi)
 
+    # phase 2: one nvcc per source, started together
+    kernels = {"melspec": melspec, "timestretch": timestretch}
     t0 = time.perf_counter()
-    melspec.build()
+    _build.build(*kernels)
+    for k in kernels.values():
+        k.build()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("melspec", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    nvcc_s = _build.BUILD_SECONDS.get("melspec")
-    built = f"nvcc {nvcc_s:.2f} s" if nvcc_s is not None else "already built in build/"
-    print(f"phase 2 build: melspec ready in {build_s:.2f} s ({built}); " + " | ".join(ptxas))
+    for name in kernels:
+        ptxas = [ln.strip() for ln in _build.BUILD_LOG.get(name, "").splitlines()
+                 if "registers" in ln or "spill" in ln]
+        nvcc_s = _build.BUILD_SECONDS.get(name)
+        built = f"nvcc {nvcc_s:.2f} s" if nvcc_s is not None else "already built in build/"
+        print(f"phase 2 build: {name} ({built}); " + " | ".join(ptxas))
+    print(f"phase 2 build: both kernels ready in {build_s:.2f} s")
 
     # phase 3: the kernel against its plain version at the stream step's shape
     # (768 carried + 5120 new samples at 16 kHz -> 20 frames per row)
@@ -159,11 +200,126 @@ def main() -> int:
           f"plain path {med['plain']:.2f} ms = {audio_s / med['plain'] * 1e3:.0f} audio-s/s "
           f"(runs, ms: {json.dumps(times)})")
 
-    print(json.dumps({"kernels": [{
-        "name": "melspec", "route": "cuda", "source": "audioflow_torch/csrc/melspec.cu",
-        "replaces": "audioflow_tpu/ops/pallas/melspec.py:137", "launches": launches,
-        "max_abs_err": kernel_err, "ms": k_ms, "plain_ms": p_ms,
-    }]}))
+    # per frame: window, rFFT, power, mel projection, floor and log
+    n_fft, n_bins, n_mels = 1024, 513, 128
+    ms_flops = BATCH * 20 * (n_fft + rfft_flops(n_fft) + 3 * n_bins + 2 * n_bins * n_mels + 2 * n_mels)
+    ms_work = BATCH * 20 * (4 * n_fft * n_bins + 3 * n_bins + 2 * n_bins * n_mels + 2 * n_mels)
+    ms_bound, ms_by = bound_ms(
+        ms_flops, 4 * (BATCH * 5888 + 2 * n_fft * n_bins + n_bins * n_mels + BATCH * 20 * n_mels),
+    )
+    del x
+
+    # phase 6: the time-stretch kernel against its plain version
+    x_np = tone_batch(PVOC_BATCH, SECONDS, PVOC_RATE, SEED)
+    x = torch.from_numpy(x_np).to(dev)
+    t = x.shape[-1]
+
+    def stretch_err(xs, rate):
+        before = timestretch.COUNT.launches
+        got = timestretch.time_stretch_fused(xs, rate)
+        torch.cuda.synchronize()
+        check(timestretch.COUNT.launches == before + 1, "timestretch: one launch per call")
+        want = timestretch.time_stretch_reference(xs, rate)
+        check(got.shape == want.shape == (xs.shape[0], round(xs.shape[-1] / rate)), f"shapes {got.shape}")
+        err = (got - want).abs().max().item()
+        return err, err / want.abs().max().item()
+
+    ts_err, ts_rel = stretch_err(x, 1.25)
+    check(ts_rel <= STRETCH_TOL, f"timestretch vs plain at rate 1.25: rel {ts_rel} > {STRETCH_TOL}")
+    half_rel = stretch_err(x, 0.5)[1]  # the PitchShift(12.0) path's shape
+    check(half_rel <= STRETCH_TOL, f"timestretch vs plain at rate 0.5: rel {half_rel} > {STRETCH_TOL}")
+    rels = {}
+    for rate in (0.8, 2.0 / 3.0, 0.5, 2.0):
+        rels[f"{rate:.4f}"] = stretch_err(x[:8].contiguous(), rate)[1]
+        check(rels[f"{rate:.4f}"] <= STRETCH_TOL, f"timestretch vs plain at rate {rate}: {rels}")
+    ts_ms = cuda_ms(lambda: timestretch.time_stretch_fused(x, 1.25), 10)
+    tp_ms = cuda_ms(lambda: timestretch.time_stretch_reference(x, 1.25), 3, warmup=1)
+    # per input frame: window, rFFT, magnitude and unit increment phasor
+    # (14 per bin); per output frame: magnitude interpolation, phase
+    # product, renormalisation and scaling (18 per bin), inverse rFFT,
+    # synthesis window and overlap-add; per output sample, the WOLA divide
+    plan = timestretch.make_plan(t, 1.25, n_fft, 256)
+    ts_flops = PVOC_BATCH * (
+        plan.n_in * (n_fft + rfft_flops(n_fft) + 14 * n_bins)
+        + plan.n_out * (18 * n_bins + rfft_flops(n_fft) + 2 * n_fft) + plan.out_len
+    )
+    ts_work = PVOC_BATCH * 4 * n_fft * n_bins * (plan.n_in + plan.n_out)  # the kernel's dense DFTs
+    ts_bound, ts_by = bound_ms(ts_flops, 4 * PVOC_BATCH * (t + plan.out_len))
+    print(f"phase 6 timestretch vs plain at [{PVOC_BATCH}, {t}] rate 1.25: max|d| {ts_err:.3e}, "
+          f"rel {ts_rel:.3e}; rate 0.5 on all rows: rel {half_rel:.3e}; on 8 rows at other rates: "
+          f"rel {json.dumps(rels)} (tol {STRETCH_TOL}); kernel {ts_ms:.4f} ms, plain {tp_ms:.4f} ms, "
+          f"bound {ts_bound:.4f} ms ({ts_by}: {ts_flops / 1e9:.3f} GFLOP with FFTs; the kernel's dense "
+          f"DFTs are {ts_work / 1e9:.1f} GFLOP, run at {ts_work / ts_ms / 1e9:.1f} TFLOP/s; "
+          f"{plan.n_in} input, {plan.n_out} output frames) ({card})")
+
+    # phase 7: the slice through the graph, counted from 0
+    stretch = Graph((TimeStretch(1.25),), input_rate=PVOC_RATE).compile()
+    pitch = Graph((PitchShift(12.0),), input_rate=PVOC_RATE).compile()
+    timestretch.COUNT.launches = 0
+    y = stretch(x_np)  # numpy input goes to the card
+    torch.cuda.synchronize()
+    check(timestretch.COUNT.launches == 1, f"TimeStretch launched {timestretch.COUNT.launches} times")
+    check(tuple(y.shape) == (PVOC_BATCH, 128000) and y.device.type == "cuda", f"stretch {tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()), "non-finite stretched samples")
+    y = pitch(x)
+    torch.cuda.synchronize()
+    ts_launches = timestretch.COUNT.launches
+    check(ts_launches == 2, f"PitchShift launched {ts_launches - 1} times")
+    check(tuple(y.shape) == (PVOC_BATCH, t), f"pitch output shape {tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()), "non-finite pitch-shifted samples")
+    rng = np.random.default_rng(SEED)
+    tt = np.arange(PVOC_RATE) / PVOC_RATE
+    xs = (0.4 * np.sin(2 * np.pi * 440.0 * tt)).astype(np.float32)
+    xs += 0.05 * rng.standard_normal(PVOC_RATE).astype(np.float32)
+    got = time_stretch(xs, 1.25, impl="pallas").cpu().numpy()
+    ref = time_stretch(xs, 1.25, impl="matmul").cpu().numpy()
+    n = ref.shape[-1] - 1024
+    gate = float(np.abs(ref[:n] - got[:n]).max() / np.abs(ref).max())
+    check(gate < PVOC_GATE, f"kernel vs matmul path rel {gate} >= {PVOC_GATE}")
+    tone = (0.5 * np.sin(2 * np.pi * 440.0 * tt)).astype(np.float32)
+    shifted = pitch(tone).cpu().numpy()
+    peak_hz = float(np.argmax(np.abs(np.fft.rfft(shifted * np.hanning(shifted.size))))) * PVOC_RATE / shifted.size
+    check(abs(peak_hz - 880.0) <= PVOC_RATE / shifted.size, f"pitch +12 of 440 Hz peaks at {peak_hz} Hz")
+    print(f"phase 7 slice: TimeStretch(1.25) {PVOC_BATCH} x {t} -> ({PVOC_BATCH}, 128000), "
+          f"PitchShift(12.0) -> {tuple(y.shape)}, finite, timestretch launches {ts_launches} for 2 "
+          f"calls; kernel vs matmul path on 1 s 440 Hz + noise: rel {gate:.3e} (gate {PVOC_GATE}); "
+          f"440 Hz shifted +12 peaks at {peak_hz:.1f} Hz")
+    del y
+
+    # phase 8: timing, alternating the matmul and kernel paths
+    audio_s = PVOC_BATCH * t / PVOC_RATE
+    runs = {
+        "time_stretch": lambda impl: time_stretch(x, 1.25, impl=impl),
+        "pitch_shift": lambda impl: pitch_shift(x, 12.0, impl=impl),
+    }
+    for name, fn in runs.items():
+        times = {"pallas": [], "matmul": []}
+        for impl in ("matmul", "pallas", "pallas", "matmul", "matmul", "pallas"):
+            times[impl].append(cuda_ms(lambda impl=impl: fn(impl), 3, warmup=1))
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        print(f"phase 8 timing ({card}): {name} {audio_s:.1f} audio-s per run; kernel path "
+              f"{med['pallas']:.3f} ms = {audio_s / med['pallas'] * 1e3:.0f} audio-s/s, matmul path "
+              f"{med['matmul']:.3f} ms = {audio_s / med['matmul'] * 1e3:.0f} audio-s/s "
+              f"(runs, ms: {json.dumps(times)})")
+    print(f"phase 8 kernels ({card}): melspec {k_ms:.4f} ms vs plain {p_ms:.4f} ms, bound "
+          f"{ms_bound:.4f} ms ({ms_by}: {ms_flops / 1e9:.3f} GFLOP with an rFFT; the kernel's dense DFT "
+          f"{ms_work / 1e9:.2f} GFLOP at {ms_work / k_ms / 1e9:.1f} TFLOP/s); timestretch {ts_ms:.4f} ms "
+          f"vs plain {tp_ms:.4f} ms, bound {ts_bound:.4f} ms ({ts_by})")
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "melspec", "route": "cuda", "source": "audioflow_torch/csrc/melspec.cu",
+            "replaces": "audioflow_tpu/ops/pallas/melspec.py:137", "launches": launches,
+            "max_abs_err": kernel_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": ms_bound, "bound_by": ms_by, "library_ms": None,
+        },
+        {
+            "name": "timestretch", "route": "cuda", "source": "audioflow_torch/csrc/timestretch.cu",
+            "replaces": "audioflow_tpu/ops/pallas/timestretch.py:358", "launches": ts_launches,
+            "max_abs_err": ts_err, "ms": ts_ms, "plain_ms": tp_ms,
+            "bound_ms": ts_bound, "bound_by": ts_by, "library_ms": None,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

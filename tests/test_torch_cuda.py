@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from audioflow_torch.models import log_mel_frontend
-from audioflow_torch.ops.kernels import melspec
+from audioflow_torch.ops import pitch_shift, time_stretch
+from audioflow_torch.ops.kernels import melspec, timestretch
 from audioflow_torch.ops.mel import mel_filterbank
 from audioflow_torch.ops.stft import dft_banks
 
@@ -80,3 +81,95 @@ def test_slice_on_card_matches_cpu(cuda_device):
     want = g.scan_stream(torch.from_numpy(x), chunk)
     assert got.shape == want.shape == (4, 60, 128)
     assert (got - want).abs().max().item() <= 1e-3
+
+
+def _tones(shape, seed=0):
+    """Two tones plus noise per row: every bin carries signal."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(shape[-1]) / 16000.0
+    f = rng.uniform(100, 3000, (shape[0], 2))
+    x = 0.4 * np.sin(2 * np.pi * f[:, :1] * t) + 0.2 * np.sin(2 * np.pi * f[:, 1:] * t)
+    return (x + 0.05 * rng.standard_normal(shape)).astype(np.float32)
+
+
+# the pvoc rate, slow-downs that take many output frames per input frame,
+# a speed-up past 1 frame per step, a long hop, a length no hop divides, an
+# odd n_fft, a rate that skips 11 frames per step, one row barely longer
+# than the reflect padding
+@pytest.mark.parametrize(
+    "shape,rate,n_fft,hop",
+    [
+        ((4, 16000), 1.25, 1024, 256),
+        ((4, 16000), 0.8, 1024, 256),
+        ((3, 16000), 2.0 / 3.0, 1024, 256),
+        ((3, 16000), 0.5, 1024, 256),
+        ((3, 16000), 2.0, 1024, 256),
+        ((2, 20011), 1.25, 2048, 512),
+        ((2, 20011), 0.75, 2048, 512),
+        ((2, 9001), 1.5, 512, 128),
+        ((2, 6000), 0.75, 501, 167),
+        ((2, 30000), 11.0, 1024, 256),
+        ((1, 700), 1.25, 1024, 256),
+    ],
+)
+def test_timestretch_kernel_matches_plain(cuda_device, shape, rate, n_fft, hop):
+    x = torch.from_numpy(_tones(shape)).to(cuda_device)
+    before = timestretch.COUNT.launches
+    got = timestretch.time_stretch_fused(x, rate, n_fft, hop)
+    torch.cuda.synchronize()
+    assert timestretch.COUNT.launches == before + 1
+    want = timestretch.time_stretch_reference(x, rate, n_fft, hop)
+    assert got.shape == want.shape == (shape[0], round(shape[1] / rate))
+    # every sample, tail included: both follow the kernel's tail convention;
+    # fp32 sums in another order, carried through the phase product
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    assert rel <= 1e-4, rel
+
+
+def test_timestretch_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.from_numpy(_tones((2, 16000))).to(cuda_device)
+    with pytest.raises(ValueError):
+        timestretch.time_stretch_fused(x[:, ::2], 1.25)  # not contiguous
+    with pytest.raises(ValueError):
+        timestretch.time_stretch_fused(x.double(), 1.25)
+    with pytest.raises(ValueError):
+        timestretch.time_stretch_fused(x, 3.14159)  # not a small rational
+
+
+def test_time_stretch_auto_takes_the_kernel(cuda_device):
+    x = _tones((2, 16000))
+    before = timestretch.COUNT.launches
+    got = time_stretch(x, 1.25)  # numpy input goes to the card
+    assert got.device.type == "cuda" and timestretch.COUNT.launches == before + 1
+    time_stretch(x, 1.25, impl="matmul")
+    time_stretch(x, 2 ** (7 / 12))  # not a small rational: the matmul path
+    assert timestretch.COUNT.launches == before + 1
+
+
+def test_time_stretch_takes_the_kernel_for_leading_axes(cuda_device):
+    """[2, 3, T] goes through the kernel in one launch, rows flattened, and
+    equals the kernel on the [6, T] view."""
+    x = torch.from_numpy(_tones((6, 16000))).to(cuda_device)
+    before = timestretch.COUNT.launches
+    got = time_stretch(x.reshape(2, 3, -1), 1.25)
+    torch.cuda.synchronize()
+    assert timestretch.COUNT.launches == before + 1
+    assert got.shape == (2, 3, 12800)
+    want = timestretch.time_stretch_fused(x, 1.25)
+    torch.testing.assert_close(got.reshape(6, -1), want, rtol=0, atol=0)
+
+
+def test_pitch_shift_on_card_matches_cpu(cuda_device):
+    """+12 semitones on the card (kernel at rate 1/2, then resample) against
+    the CPU (matmul path, then resample): the two stretch paths accumulate
+    phase in different forms and differ at the tail frame by convention, so
+    this is the JAX package's kernel-vs-matmul gate (6e-3, validate.py)
+    over all but the last 1024 samples."""
+    x = _tones((2, 16000))
+    before = timestretch.COUNT.launches
+    got = pitch_shift(x, 12.0).cpu().numpy()
+    assert timestretch.COUNT.launches == before + 1
+    want = pitch_shift(x, 12.0, device="cpu").numpy()
+    assert got.shape == want.shape == x.shape
+    rel = np.abs(got - want)[:, :-1024].max() / np.abs(want).max()
+    assert rel < 6e-3, rel
