@@ -4,7 +4,8 @@
 // Pallas kernel `_kernel`): STFT -> phasor phase vocoder at a rational rate
 // p/q -> inverse STFT with overlap-add and the window-square normalisation.
 // ops/kernels/timestretch.py states the function step by step; the wrapper
-// designs the banks and the normaliser on the host.
+// designs the banks and the normaliser on the host. The dense DFT loops of
+// passes (a) and (c) are in dft.cuh, shared with griffinlim.cu.
 //
 // Layout: x [batch, t] row-major. cosb, sinb [n_fft, n_bins] are the
 // window-folded analysis banks, ciw, siw [n_bins, n_fft] the inverse-DFT
@@ -45,14 +46,15 @@
 
 #include <cuda_runtime.h>
 
+#include "dft.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;      // analysis and synthesis blocks
-constexpr int kFrames = 16;        // (a) input frames per block
-constexpr int kBinsPerThread = 2;  // (a) bins per thread in a full pass
+using dft::kFrames;
+using dft::kRows;
+using dft::kThreads;
 constexpr int kPhaseThreads = 128; // (b) threads per block
 constexpr int kChunk = 32;         // (b) input frames each thread stages
-constexpr int kRows = 16;          // (c) output hop-rows per block
 
 // ---------------------------------------------------------------- (a) analysis
 
@@ -63,72 +65,6 @@ __device__ __forceinline__ float padded(const float* __restrict__ row, int i, in
   if (j < t) return row[j];
   if (j < t + half) return row[2 * (t - 1) - j];
   return 0.f;
-}
-
-// re/im of bins k0 + threadIdx.x + b * kThreads (b < BPT) for every staged
-// frame. A thread whose last bin is out of range returns. No barrier inside.
-template <int BPT>
-__device__ __forceinline__ void dft_pass(
-    const float* __restrict__ frames, int ld, const float* __restrict__ cosb,
-    const float* __restrict__ sinb, int k0, int n_bins, int n_fft, long long g0,
-    long long total, float* __restrict__ re_out, float* __restrict__ im_out) {
-  int k[BPT];
-#pragma unroll
-  for (int b = 0; b < BPT; ++b) k[b] = k0 + threadIdx.x + b * kThreads;
-  if (k[BPT - 1] >= n_bins) return;
-
-  float re[BPT][kFrames], im[BPT][kFrames];
-#pragma unroll
-  for (int b = 0; b < BPT; ++b)
-#pragma unroll
-    for (int f = 0; f < kFrames; ++f) re[b][f] = im[b][f] = 0.f;
-
-  const int n4 = n_fft & ~3;
-  for (int n = 0; n < n4; n += 4) {
-    float c[4][BPT], s[4][BPT];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int b = 0; b < BPT; ++b) {
-        const size_t o = static_cast<size_t>(n + j) * n_bins + k[b];
-        c[j][b] = __ldg(cosb + o);
-        s[j][b] = __ldg(sinb + o);
-      }
-#pragma unroll
-    for (int f = 0; f < kFrames; ++f) {
-      const float4 v = *reinterpret_cast<const float4*>(frames + f * ld + n);
-      const float xv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int b = 0; b < BPT; ++b) {
-          re[b][f] = fmaf(xv[j], c[j][b], re[b][f]);
-          im[b][f] = fmaf(xv[j], s[j][b], im[b][f]);
-        }
-    }
-  }
-  for (int n = n4; n < n_fft; ++n) {  // n_fft % 4 tail
-#pragma unroll
-    for (int b = 0; b < BPT; ++b) {
-      const size_t o = static_cast<size_t>(n) * n_bins + k[b];
-      const float c = __ldg(cosb + o), s = __ldg(sinb + o);
-#pragma unroll
-      for (int f = 0; f < kFrames; ++f) {
-        re[b][f] = fmaf(frames[f * ld + n], c, re[b][f]);
-        im[b][f] = fmaf(frames[f * ld + n], s, im[b][f]);
-      }
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < kFrames; ++f) {
-    const long long g = g0 + f;
-    if (g >= total) break;
-#pragma unroll
-    for (int b = 0; b < BPT; ++b) {
-      re_out[g * n_bins + k[b]] = re[b][f];
-      im_out[g * n_bins + k[b]] = im[b][f];
-    }
-  }
 }
 
 __global__ void __launch_bounds__(kThreads, 2) analysis_kernel(
@@ -156,12 +92,7 @@ __global__ void __launch_bounds__(kThreads, 2) analysis_kernel(
     }
   }
   __syncthreads();
-
-  int k0 = 0;
-  for (; k0 + kBinsPerThread * kThreads <= n_bins; k0 += kBinsPerThread * kThreads)
-    dft_pass<kBinsPerThread>(frames, ld, cosb, sinb, k0, n_bins, n_fft, g0, total, re, im);
-  for (; k0 < n_bins; k0 += kThreads)
-    dft_pass<1>(frames, ld, cosb, sinb, k0, n_bins, n_fft, g0, total, re, im);
+  dft::analyse(frames, ld, cosb, sinb, n_bins, n_fft, g0, total, re, im);
 }
 
 // ------------------------------------------------------------------- (b) phase
@@ -293,36 +224,7 @@ __global__ void __launch_bounds__(kThreads) synthesis_kernel(
     float acc[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int j = 0; j < n_seg; ++j) {
-      const float* cb = ciw + j * hop + n;  // bank row k at cb[k * n_fft]
-      const float* sb = siw + j * hop + n;
-      for (int k = 0; k < kpad; k += 4) {
-        float c[4], s[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          // past n_bins the staged spectra are zero; any finite bank value does
-          const size_t o = static_cast<size_t>(min(k + i, n_bins - 1)) * n_fft;
-          c[i] = __ldg(cb + o);
-          s[i] = __ldg(sb + o);
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int f = r - j + n_seg - 1;
-          const float4 a = *reinterpret_cast<const float4*>(sre + f * kpad + k);
-          const float4 e = *reinterpret_cast<const float4*>(sim + f * kpad + k);
-          float v = acc[r];
-          v = fmaf(a.x, c[0], v);
-          v = fmaf(a.y, c[1], v);
-          v = fmaf(a.z, c[2], v);
-          v = fmaf(a.w, c[3], v);
-          v = fmaf(e.x, s[0], v);
-          v = fmaf(e.y, s[1], v);
-          v = fmaf(e.z, s[2], v);
-          v = fmaf(e.w, s[3], v);
-          acc[r] = v;
-        }
-      }
-    }
+    dft::synthesise(sre, sim, kpad, ciw, siw, n, hop, n_fft, n_bins, 0, n_seg, acc);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const long long j = static_cast<long long>(r0 + r) * hop + n - half;  // trimmed index

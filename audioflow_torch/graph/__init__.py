@@ -2,6 +2,7 @@
 
 from .graph import Graph, chain
 from .nodes import (
+    GriffinLim,
     LogMelSpec,
     MelProject,
     Node,
@@ -14,6 +15,6 @@ from .nodes import (
 )
 
 __all__ = [
-    "Graph", "LogMelSpec", "MelProject", "Node", "PitchShift", "Resample", "Spectrogram",
+    "Graph", "GriffinLim", "LogMelSpec", "MelProject", "Node", "PitchShift", "Resample", "Spectrogram",
     "TimeStretch", "chain", "node_registry", "register_node",
 ]

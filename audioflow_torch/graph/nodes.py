@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from ..errors import AudioError, ErrorCode
+from ..ops.griffinlim import griffin_lim
 from ..ops.kernels.melspec import mel_spectrogram
 from ..ops.mel import apply_mel, cached_filterbank, log_mel
 from ..ops.phase_vocoder import pitch_shift, time_stretch
@@ -322,3 +323,32 @@ class PitchShift(Node):
 
     def apply(self, x):
         return pitch_shift(x, self.semitones, self.sample_rate, self.n_fft, self.hop)
+
+
+@register_node
+@dataclass(frozen=True)
+class GriffinLim(Node):
+    """Magnitude frames -> waveform by fast Griffin-Lim (``ops.griffin_lim``).
+    Whole-signal and iterative, so offline only. On the card ``impl="auto"``
+    runs the fused CUDA kernel, one launch per iteration."""
+
+    n_fft: int = 1024
+    hop: int = 256
+    window: str = "hann"
+    n_iter: int = 32
+    momentum: float = 0.99
+    center: bool = True
+    impl: str = "auto"
+    streamable = False
+
+    domain_in = "frames"
+    domain_out = "samples"
+
+    def apply(self, x):
+        return griffin_lim(
+            x, self.n_fft, self.hop, self.window, self.n_iter, self.momentum,
+            center=self.center, impl=self.impl,
+        )
+
+    def out_len(self, n_in):
+        return n_in * self.hop

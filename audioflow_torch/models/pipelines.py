@@ -5,7 +5,20 @@ Each returns a :class:`~audioflow_torch.graph.Graph`.
 
 from __future__ import annotations
 
-from ..graph import Graph, LogMelSpec, MelProject, Resample, Spectrogram
+from ..graph import Graph, LogMelSpec, MelProject, Resample, Spectrogram, chain
+
+
+def stft_magnitude_graph(
+    sample_rate: int = 16000, n_fft: int = 1024, hop: int = 256, center: bool = True
+) -> Graph:
+    """Benchmark config 1: mono PCM -> STFT magnitude spectrogram, the
+    analysis half of the Griffin-Lim round trip
+    ``chain(Spectrogram(power=False), GriffinLim(...))``."""
+    return chain(
+        Spectrogram(n_fft, hop, center=center, power=False),
+        input_rate=sample_rate,
+        name="stft_magnitude",
+    )
 
 
 def log_mel_frontend(

@@ -4,8 +4,8 @@ them with ctypes.
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header, so ``nvcc`` builds it in seconds into a shared library under
 ``build/audioflow_torch/`` at the root of the checkout. The library's file
-name carries a digest of the source and flags, so an edited source is never
-served by an old build. Nothing is built or imported when this module is
+name carries a digest of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source is never served by an old build. Nothing is built or imported when this module is
 imported.
 """
 
@@ -52,8 +52,11 @@ def _nvcc() -> str:
 
 
 def _library(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, named by a digest of the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -31,7 +31,6 @@ import ctypes
 import functools
 from dataclasses import dataclass
 from fractions import Fraction
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,7 +39,7 @@ from ...utils import cdiv
 from ...utils.cache import BoundedCache, on_device
 from .._mm import PRECISIONS, mm
 from ..framing import frame, overlap_add
-from ..stft import _idft_banks, dft_banks, pad_center, padded_window
+from ..stft import Banks, kernel_banks, pad_center, padded_window
 from ._build import load
 from .melspec import LaunchCount
 
@@ -55,8 +54,6 @@ COUNT = LaunchCount()
 
 # WOLA normalisers, one float32 vector of out_len per (plan, window)
 _NORM_CACHE = BoundedCache(maxsize=16)
-# synthesis banks, 2 x n_bins x n_fft x 4 B per (n_fft, window)
-_SYNTH_CACHE = BoundedCache(maxsize=16)
 
 
 @functools.cache
@@ -141,36 +138,6 @@ def make_plan(t: int, rate: float, n_fft: int, hop: int) -> Plan:
     )
 
 
-class Banks(NamedTuple):
-    """Analysis banks ``[n_fft, n_bins]`` (window folded in, as
-    ``ops.stft.dft_banks``) and synthesis banks ``[n_bins, n_fft]``
-    (inverse DFT times the synthesis window)."""
-
-    cos: torch.Tensor
-    sin: torch.Tensor
-    icos: torch.Tensor
-    isin: torch.Tensor
-
-
-def synthesis_banks(n_fft: int, window: str) -> tuple[np.ndarray, np.ndarray]:
-    """``_idft_banks`` with the synthesis window folded into the columns,
-    float32 as the JAX wrapper designs them (``timestretch.py:428-431``).
-    Cached: callers must not write to them."""
-    key = (n_fft, window)
-    if key not in _SYNTH_CACHE:
-        ci, si = _idft_banks(n_fft)
-        w = padded_window(n_fft, window)
-        _SYNTH_CACHE[key] = (ci * w[None, :]).astype(np.float32), (si * w[None, :]).astype(np.float32)
-    return _SYNTH_CACHE[key]
-
-
-def stretch_banks(n_fft: int, window: str, device) -> Banks:
-    """The host designs as float32 tensors on ``device`` (uploaded once)."""
-    ciw, siw = synthesis_banks(n_fft, window)
-    cosb, sinb = dft_banks(n_fft, window, None, device)
-    return Banks(cosb, sinb, on_device(ciw, device), on_device(siw, device))
-
-
 def wola_norm(plan: Plan, window: str) -> np.ndarray:
     """``max(wsum, 1e-11)`` over the trimmed output, float32 ``[out_len]``:
     ``wsum`` is the overlap-add of ``w²`` over ``t_out_off`` frames, zero
@@ -244,7 +211,7 @@ def time_stretch_reference(
     if x.ndim == 0:
         raise ValueError("expected [..., T], got a scalar")
     plan = make_plan(x.shape[-1], rate, n_fft, hop)
-    bk = stretch_banks(n_fft, window, x.device)
+    bk = kernel_banks(n_fft, window, x.device)
     norm = on_device(wola_norm(plan, window), x.device)
     return _reference(x.reshape(-1, plan.t), plan, bk, norm).reshape(*x.shape[:-1], plan.out_len)
 
@@ -287,7 +254,7 @@ def time_stretch_fused(
     smem = lib.timestretch_smem_bytes(n_fft, hop)
     if smem != smem_bytes(n_fft, hop):
         raise RuntimeError(f"smem_bytes() is out of date with timestretch.cu: {smem_bytes(n_fft, hop)} vs {smem}")
-    bk = stretch_banks(n_fft, window, x.device)
+    bk = kernel_banks(n_fft, window, x.device)
     norm = on_device(wola_norm(plan, window), x.device)
     spec = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
     re, im = spec((batch, plan.n_in, plan.n_bins)), spec((batch, plan.n_in, plan.n_bins))

@@ -1,8 +1,8 @@
-"""Mel filterbank and log-mel features.
+"""Mel filterbank, log-mel and MFCC features, and their inversion to audio.
 
-The filterbank is a host-side float64 design copied bit for bit from
-``audioflow_tpu/ops/mel.py``; the projection is one
-``[frames, freqs] @ [freqs, mels]`` matmul in fp32.
+The filterbank and the DCT basis are host-side float64 designs copied bit
+for bit from ``audioflow_tpu/ops/mel.py``; the projections are fp32
+matmuls.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import as_tensor
 from ..utils.cache import BoundedCache, on_device
 from ._mm import mm
 
@@ -124,3 +125,109 @@ def log_mel(
     if log_base in (None, "none"):
         raise ValueError(f"unknown log_base {log_base!r}")
     return floor_log(apply_mel(spec_power, fb), floor, log_base)
+
+
+def dct_matrix(n_in: int, n_out: int, norm: str | None = "ortho", dtype=np.float32) -> np.ndarray:
+    """DCT-II basis ``[n_in, n_out]`` for MFCC as a matmul."""
+    k = np.arange(n_out, dtype=np.float64)[None, :]
+    n = np.arange(n_in, dtype=np.float64)[:, None]
+    basis = 2.0 * np.cos(np.pi * k * (2.0 * n + 1.0) / (2.0 * n_in))
+    if norm == "ortho":
+        basis[:, 0] *= 1.0 / np.sqrt(4.0 * n_in)
+        basis[:, 1:] *= 1.0 / np.sqrt(2.0 * n_in)
+    return basis.astype(dtype)
+
+
+def mfcc(log_mels: torch.Tensor, n_mfcc: int = 13) -> torch.Tensor:
+    """MFCC from log-mel features ``[..., n_mels]``: one more matmul (DCT-II, ortho)."""
+    d = dct_matrix(log_mels.shape[-1], n_mfcc)
+    return mm(log_mels, torch.from_numpy(d).to(log_mels.device))
+
+
+# Feature inversion: mel/MFCC back to a spectrogram (non-negative least
+# squares by Lee-Seung multiplicative updates from the adjoint), then to
+# audio through griffin_lim.
+
+
+def mel_to_stft(
+    m: torch.Tensor,
+    fb: np.ndarray,
+    n_iter: int = 32,
+    precision: str | None = "high",
+    eps: float = 1e-10,
+) -> torch.Tensor:
+    """Nonnegative least-squares inverse of :func:`apply_mel`.
+
+    Recovers a power spectrogram ``s [..., F, n_freqs]`` with ``s @ fb ~ m``
+    and ``s >= 0`` by ``n_iter`` multiplicative updates
+    ``s <- s * (m @ fb.T) / (s @ fb @ fb.T)`` from the adjoint init
+    ``s0 = m @ fb.T``, in fp32 (``precision`` is accepted for parity).
+    """
+    fb = np.asarray(fb, np.float64)
+    fbt = torch.from_numpy(fb.T.astype(np.float32)).to(m.device)
+    fbj = torch.from_numpy(fb.astype(np.float32)).to(m.device)
+    m = torch.clamp_min(m, 0.0)
+    target = mm(m, fbt, precision)  # [..., F, n_freqs], constant across iterations
+    s = target
+    for _ in range(n_iter):
+        denom = mm(mm(s, fbj, precision), fbt, precision)
+        s = s * target / torch.clamp_min(denom, eps)
+    return s
+
+
+def mfcc_to_log_mel(coeffs: torch.Tensor, n_mels: int = 128) -> torch.Tensor:
+    """Inverse of :func:`mfcc` (orthonormal DCT-II columns: the adjoint is the
+    pseudo-inverse): ``[..., n_mfcc]`` -> ``[..., n_mels]``. Exact on the
+    retained coefficients; the discarded ones are smoothed away."""
+    d = dct_matrix(n_mels, coeffs.shape[-1])
+    return mm(coeffs, torch.from_numpy(d.T.copy()).to(coeffs.device))
+
+
+def mel_to_audio(
+    m,
+    fb: np.ndarray,
+    n_fft: int = 1024,
+    hop: int = 256,
+    window: str = "hann",
+    center: bool = True,
+    length: int | None = None,
+    nnls_iter: int = 32,
+    gl_iter: int = 32,
+    power: float = 2.0,
+    device: torch.device | str | None = None,
+) -> torch.Tensor:
+    """Mel (power, ``power=2.0``, or magnitude, ``power=1.0``) spectrogram
+    ``[..., F, n_mels]`` -> waveform: NNLS inversion to the linear
+    spectrogram, then Griffin-Lim (``impl="auto"``: the fused kernel on the
+    card). ``m`` is a tensor, or a numpy array that goes to ``device``
+    ("cuda" unless given)."""
+    # imported here: ops.griffinlim reaches ops.kernels.melspec, which
+    # imports this module
+    from .griffinlim import griffin_lim
+
+    s = mel_to_stft(as_tensor(m, device), fb, n_iter=nnls_iter)
+    mag = torch.sqrt(torch.clamp_min(s, 0.0)) if power == 2.0 else torch.clamp_min(s, 0.0)
+    return griffin_lim(mag, n_fft, hop, window=window, n_iter=gl_iter, center=center, length=length)
+
+
+def mfcc_to_audio(
+    coeffs,
+    fb: np.ndarray,
+    n_fft: int = 1024,
+    hop: int = 256,
+    log_base: str = "ln",
+    device: torch.device | str | None = None,
+    **kwargs,
+) -> torch.Tensor:
+    """MFCC ``[..., F, n_mfcc]`` -> waveform via the inverse DCT, the inverse
+    of :func:`log_mel` at ``log_base``, and :func:`mel_to_audio`."""
+    lm = mfcc_to_log_mel(as_tensor(coeffs, device), n_mels=np.asarray(fb).shape[-1])
+    if log_base == "ln":
+        m = torch.exp(lm)
+    elif log_base == "log10":
+        m = torch.pow(10.0, lm)
+    elif log_base == "db":
+        m = torch.pow(10.0, lm / 10.0)
+    else:
+        raise ValueError(f"unknown log_base {log_base!r}")
+    return mel_to_audio(m, fb, n_fft, hop, **kwargs)

@@ -11,6 +11,8 @@ overlap-add and the window-square (WOLA) normalisation.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -161,6 +163,37 @@ def _idft_banks(n_fft: int):
         si = (-weights * np.sin(ang) / n_fft).astype(np.float32)
         _BANK_CACHE[key] = (ci, si)
     return _BANK_CACHE[key]
+
+
+def synthesis_banks(n_fft: int, window: str) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`_idft_banks` with the synthesis window folded into the columns,
+    float32, as the JAX package's fused kernels design them
+    (``pallas/timestretch.py:428-431``, ``pallas/griffinlim.py:297-298``).
+    Cached: callers must not write to them."""
+    key = ("synthesis", n_fft, window)
+    if key not in _BANK_CACHE:
+        ci, si = _idft_banks(n_fft)
+        w = padded_window(n_fft, window)
+        _BANK_CACHE[key] = (ci * w[None, :]).astype(np.float32), (si * w[None, :]).astype(np.float32)
+    return _BANK_CACHE[key]
+
+
+class Banks(NamedTuple):
+    """The fused kernels' banks as float32 tensors on one device: analysis
+    ``[n_fft, n_bins]`` (window folded in, as :func:`dft_banks`) and
+    synthesis ``[n_bins, n_fft]`` (:func:`synthesis_banks`)."""
+
+    cos: torch.Tensor
+    sin: torch.Tensor
+    icos: torch.Tensor
+    isin: torch.Tensor
+
+
+def kernel_banks(n_fft: int, window: str, device) -> Banks:
+    """:class:`Banks` on ``device`` (uploaded once)."""
+    ciw, siw = synthesis_banks(n_fft, window)
+    cosb, sinb = dft_banks(n_fft, window, None, device)
+    return Banks(cosb, sinb, on_device(ciw, device), on_device(siw, device))
 
 
 def frames_from_spec(

@@ -1,6 +1,6 @@
 """Device-time breakdown of the port's paths on one CUDA card.
 
-    python -m audioflow_torch.profiling [logmel] [pvoc] [pitch]
+    python -m audioflow_torch.profiling [logmel] [pvoc] [pitch] [griffinlim]
 
 Each path runs in two variants at the JAX benchmark's sizes
 (``audioflow_tpu/bench.py``): through the hand-written kernel and through
@@ -15,7 +15,10 @@ Without a card it exits non-zero and prints no result.
   Spectrogram + MelProject graph;
 * ``pvoc``: ``time_stretch(x, 1.25)`` on 64 x 10 s at 16 kHz,
   ``impl="pallas"`` (timestretch kernel) vs ``"matmul"``;
-* ``pitch``: ``pitch_shift(x, 12.0)`` on the same batch, both impls.
+* ``pitch``: ``pitch_shift(x, 12.0)`` on the same batch, both impls;
+* ``griffinlim``: ``griffin_lim(mag, n_iter=8)`` on the magnitude
+  ``[64, 626, 513]`` of the same batch (n_fft 1024, hop 256), ``impl="auto"``
+  (griffinlim kernel, one launch per iteration) vs ``"matmul"``.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ def tone_batch(batch: int, seconds: float, rate: int, seed: int = 0) -> np.ndarr
 def _paths(dev):
     """name -> (audio seconds, {variant: fn}), built lazily per path."""
     from .models import log_mel_frontend
-    from .ops import pitch_shift, time_stretch
+    from .ops import griffin_lim, pitch_shift, stft, time_stretch
 
     def logmel():
         chunk = 14112
@@ -55,10 +58,18 @@ def _paths(dev):
         x = torch.from_numpy(tone_batch(64, 10.0, 16000)).to(dev)
         return 640.0, {"kernel": lambda: fn(x, "pallas"), "plain": lambda: fn(x, "matmul")}
 
+    def griffinlim():
+        x = torch.from_numpy(tone_batch(64, 10.0, 16000)).to(dev)
+        mag = stft(x, 1024, 256).abs()
+        t = x.shape[-1]
+        return 640.0, {"kernel": lambda: griffin_lim(mag, n_iter=8, length=t),
+                       "plain": lambda: griffin_lim(mag, n_iter=8, length=t, impl="matmul")}
+
     return {
         "logmel": logmel,
         "pvoc": lambda: stretch(lambda x, impl: time_stretch(x, 1.25, impl=impl)),
         "pitch": lambda: stretch(lambda x, impl: pitch_shift(x, 12.0, impl=impl)),
+        "griffinlim": griffinlim,
     }
 
 

@@ -1,17 +1,20 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
-Drives the port's two ported paths through the hand-written CUDA kernels
+Drives the port's three ported paths through the hand-written CUDA kernels
 and checks them. The log-mel frontend
 ``log_mel_frontend(44100, 16000, 1024, 256, 128, center=False)`` streamed in
-14,112-sample chunks over a 512 x 10 s tone batch (kernel ``melspec``), and
+14,112-sample chunks over a 512 x 10 s tone batch (kernel ``melspec``);
 BASELINE config 4, time-stretch and pitch-shift, offline through
 ``Graph.compile()`` on a 64 x 10 s 16 kHz tone batch (kernel
-``timestretch``). Phases, each printing its own line:
+``timestretch``); and Griffin-Lim phase reconstruction with the mel/MFCC
+inversion built on it, on the magnitude ``[64, 626, 513]`` of that batch
+(n_fft 1024, hop 256; kernel ``griffinlim``). Phases, each printing its own
+line:
 
 1. device: the ``nvidia-smi`` name and power-limit line;
-2. build: both kernels built from ``audioflow_torch/csrc``, one nvcc per
-   source started together, with the seconds taken and ptxas's registers
-   and spills;
+2. build: the three kernels built from ``audioflow_torch/csrc``, one nvcc
+   per source started together, with the seconds taken and ptxas's
+   registers and spills;
 3. melspec kernel vs plain at the main path's step shape;
 4. melspec slice: shape, finiteness, launch count, and agreement with the
    plain two-node graph (Spectrogram + MelProject);
@@ -25,7 +28,17 @@ BASELINE config 4, time-stretch and pitch-shift, offline through
    package's validate, and the pitch-doubling probe;
 8. time-stretch timing: ``time_stretch`` and ``pitch_shift`` on the kernel
    path and the matmul path, and the kernel per call against its plain
-   version and its bound.
+   version and its bound;
+9. griffinlim kernel vs plain at ``[64, 626, 513]``: one projection
+   elementwise, 8 iterations by spectral convergence, the true-phase
+   oracle, and the ms per iteration of both against the bound;
+10. Griffin-Lim slice, launches counted from 0: ``griffin_lim(mag,
+    n_iter=8)`` (8 launches), the ``Spectrogram(power=False)`` ->
+    ``GriffinLim(n_iter=8)`` graph on numpy input (8), ``mel_to_audio`` at
+    128 mels with its defaults (32) recovering a 440 Hz row, and the JAX
+    package's ``griffinlim_tone_err`` gate (16);
+11. Griffin-Lim timing: ``griffin_lim`` (8 iterations) and ``mel_to_audio``
+    on the kernel path and the matmul path.
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a card, or
@@ -68,6 +81,18 @@ STRETCH_TOL = 1e-4
 # the two phase forms accumulate in different orders, and the tail frame
 # follows different conventions
 PVOC_GATE = 6e-3
+# griffinlim kernel vs plain version, one projection, max|d| / max|plain|:
+# linear in the magnitude, fp32 sums in another order
+GL_TOL = 1e-5
+# 8 iterations: spectral convergence of kernel and plain within this of each
+# other (elementwise comparison is meaningless past the first magnitude
+# replacement, which turns rounding at weak bins into O(1) phase steps)
+GL_SC_TOL = 0.02
+# true-phase oracle: reconstruction error over the interior, of the peak
+GL_ORACLE_TOL = 1e-3
+# the JAX package's validate gate (griffinlim_tone_err), and its tone test
+GL_TONE_GATE = 0.2
+PEAK_HZ_TOL = 8.0
 # the card's published peaks (H100 SXM data sheet): fp32 outside the tensor
 # cores, and device memory
 FP32_FLOPS = 67e12
@@ -110,10 +135,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; the port's smoke test runs only on one", file=sys.stderr)
         return 1
-    from audioflow_torch.graph import Graph, PitchShift, TimeStretch
+    from audioflow_torch.graph import GriffinLim, Graph, PitchShift, Spectrogram, TimeStretch
     from audioflow_torch.models import log_mel_frontend
-    from audioflow_torch.ops import pitch_shift, time_stretch
-    from audioflow_torch.ops.kernels import _build, melspec, timestretch
+    from audioflow_torch.ops import (
+        apply_mel, griffin_lim, mel_filterbank, mel_to_audio, mel_to_stft, pitch_shift, power, stft,
+        time_stretch,
+    )
+    from audioflow_torch.ops.kernels import _build, griffinlim, melspec, timestretch
     from audioflow_torch.ops.mel import cached_filterbank
     from audioflow_torch.ops.stft import dft_banks
     from audioflow_torch.profiling import tone_batch
@@ -129,7 +157,7 @@ def main() -> int:
     print(smi)
 
     # phase 2: one nvcc per source, started together
-    kernels = {"melspec": melspec, "timestretch": timestretch}
+    kernels = {"melspec": melspec, "timestretch": timestretch, "griffinlim": griffinlim}
     t0 = time.perf_counter()
     _build.build(*kernels)
     for k in kernels.values():
@@ -141,7 +169,7 @@ def main() -> int:
         nvcc_s = _build.BUILD_SECONDS.get(name)
         built = f"nvcc {nvcc_s:.2f} s" if nvcc_s is not None else "already built in build/"
         print(f"phase 2 build: {name} ({built}); " + " | ".join(ptxas))
-    print(f"phase 2 build: both kernels ready in {build_s:.2f} s")
+    print(f"phase 2 build: {len(kernels)} kernels ready in {build_s:.2f} s")
 
     # phase 3: the kernel against its plain version at the stream step's shape
     # (768 carried + 5120 new samples at 16 kHz -> 20 frames per row)
@@ -306,6 +334,110 @@ def main() -> int:
           f"{ms_work / 1e9:.2f} GFLOP at {ms_work / k_ms / 1e9:.1f} TFLOP/s); timestretch {ts_ms:.4f} ms "
           f"vs plain {tp_ms:.4f} ms, bound {ts_bound:.4f} ms ({ts_by})")
 
+    # phase 9: the griffinlim kernel against its plain version at full width
+    spec = stft(x, n_fft, 256)
+    mag = spec.abs().contiguous()
+    n_frames = mag.shape[1]
+    check(tuple(mag.shape) == (PVOC_BATCH, 626, n_bins), f"magnitude shape {tuple(mag.shape)}")
+    zeros = torch.zeros_like(mag)
+    gd = griffinlim.designs(n_fft, 256, "hann", n_frames, dev)
+    got = griffinlim.griffin_lim_iteration(mag, zeros, mag, zeros, mag, 0.0)
+    want = griffinlim.griffin_lim_iteration_reference(mag, zeros, mag, zeros, mag, 0.0, *gd)
+    torch.cuda.synchronize()
+    gl_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    gl_rel = gl_err / max(w.abs().max().item() for w in want)
+    check(gl_rel <= GL_TOL, f"griffinlim projection vs plain: rel {gl_rel} > {GL_TOL}")
+    del got, want
+
+    def specconv(y):
+        m2 = stft(y, n_fft, 256).abs()[..., :n_frames, :]
+        return (torch.linalg.norm(m2 - mag) / torch.linalg.norm(mag)).item()
+
+    sc_k = specconv(griffinlim.griffin_lim_fused(mag, n_iter=8, length=t))
+    sc_p = specconv(griffinlim.griffin_lim_reference(mag, n_iter=8, length=t))
+    check(abs(sc_k - sc_p) <= GL_SC_TOL, f"griffinlim 8 iterations: spectral convergence {sc_k} vs plain {sc_p}")
+    y = griffinlim.griffin_lim_fused(mag, n_iter=2, init_phase=spec.angle(), length=t)
+    oracle = ((y - x)[:, 2048:-2048].abs().max() / x.abs().max()).item()
+    check(oracle < GL_ORACLE_TOL, f"griffinlim true-phase oracle {oracle} >= {GL_ORACLE_TOL}")
+    del spec, y
+    gk_ms = cuda_ms(lambda: griffinlim.griffin_lim_iteration(mag, zeros, mag, zeros, mag, 0.99), 10)
+    gp_ms = cuda_ms(lambda: griffinlim.griffin_lim_iteration_reference(mag, zeros, mag, zeros, mag, 0.99, *gd), 10)
+    # one iteration, per frame: the prologue (15 per bin: momentum, |a|, the
+    # guard, two divides and two products), the inverse rFFT, the synthesis
+    # window and overlap-add, the analysis window and the forward rFFT; per
+    # row sample, the WOLA inverse. Bytes: 5 state planes in, 2 out, the four
+    # banks and the row inverse
+    n_rows = n_frames + n_fft // 256 - 1
+    gl_flops = PVOC_BATCH * (n_frames * (2 * rfft_flops(n_fft) + 15 * n_bins + 3 * n_fft) + n_rows * 256)
+    gl_bytes = 4 * (7 * PVOC_BATCH * n_frames * n_bins + 4 * n_fft * n_bins + n_rows * 256)
+    gl_work = PVOC_BATCH * n_frames * 8 * n_fft * n_bins  # the kernel's dense DFTs
+    gl_bound, gl_by = bound_ms(gl_flops, gl_bytes)
+    print(f"phase 9 griffinlim vs plain at {list(mag.shape)}: one projection max|d| {gl_err:.3e}, rel "
+          f"{gl_rel:.3e} (tol {GL_TOL}); 8 iterations spectral convergence kernel {sc_k:.5f} vs plain "
+          f"{sc_p:.5f} (tol {GL_SC_TOL}); true-phase oracle {oracle:.3e} (tol {GL_ORACLE_TOL}); kernel "
+          f"{gk_ms:.4f} ms per iteration, plain {gp_ms:.4f} ms, bound {gl_bound:.4f} ms ({gl_by}: "
+          f"{gl_bytes / 1e6:.1f} MB, {gl_flops / 1e9:.3f} GFLOP with FFTs; the kernel's dense DFTs are "
+          f"{gl_work / 1e9:.1f} GFLOP, run at {gl_work / gk_ms / 1e9:.1f} TFLOP/s) ({card})")
+
+    # phase 10: the Griffin-Lim slice through the port's entry points, counted from 0
+    fb = mel_filterbank(n_bins, 128, PVOC_RATE)
+    tone_np = x_np.copy()
+    tone_np[0] = 0.5 * np.sin(2 * np.pi * 440.0 * np.arange(t) / PVOC_RATE)
+    mel = apply_mel(power(stft(torch.from_numpy(tone_np).to(dev), n_fft, 256)), fb)
+    gl_graph = Graph((Spectrogram(power=False), GriffinLim(n_iter=8)), input_rate=PVOC_RATE).compile()
+    griffinlim.COUNT.launches = 0
+    y = griffin_lim(mag, n_iter=8, length=t)
+    torch.cuda.synchronize()
+    counts = [griffinlim.COUNT.launches]
+    check(counts[0] == 8, f"griffin_lim(n_iter=8) launched {counts[0]} times")
+    check(tuple(y.shape) == (PVOC_BATCH, t) and bool(torch.isfinite(y).all()), f"griffin_lim {tuple(y.shape)}")
+    y = gl_graph(x_np)  # numpy input goes to the card
+    torch.cuda.synchronize()
+    counts.append(griffinlim.COUNT.launches - sum(counts))
+    check(counts[1] == 8, f"the GriffinLim graph launched {counts[1]} times")
+    check(tuple(y.shape) == (PVOC_BATCH, n_frames * 256) and y.device.type == "cuda"
+          and bool(torch.isfinite(y).all()), f"GriffinLim graph {tuple(y.shape)}")
+    y = mel_to_audio(mel, fb, length=t)
+    torch.cuda.synchronize()
+    counts.append(griffinlim.COUNT.launches - sum(counts))
+    check(counts[2] == 32, f"mel_to_audio launched {counts[2]} times")
+    check(tuple(y.shape) == (PVOC_BATCH, t) and bool(torch.isfinite(y).all()), f"mel_to_audio {tuple(y.shape)}")
+    mid = y[0, 16000:144000].cpu().numpy()
+    sp = np.abs(np.fft.rfft(mid * np.hanning(mid.size)))
+    peak_hz = float(np.fft.rfftfreq(mid.size, 1 / PVOC_RATE)[sp.argmax()])
+    check(abs(peak_hz - 440.0) < PEAK_HZ_TOL, f"mel_to_audio of 440 Hz peaks at {peak_hz} Hz")
+    tone = torch.from_numpy(tone_np[0, :PVOC_RATE]).to(dev)
+    mg = stft(tone, n_fft, 256).abs()
+    rec = stft(griffin_lim(mg, n_fft, 256, n_iter=16), n_fft, 256).abs()
+    counts.append(griffinlim.COUNT.launches - sum(counts))
+    check(counts[3] == 16, f"griffinlim_tone_err's griffin_lim launched {counts[3]} times")
+    fg = min(rec.shape[0], mg.shape[0])
+    tone_err = (torch.linalg.norm(rec[:fg] - mg[:fg]) / torch.linalg.norm(mg)).item()
+    check(tone_err < GL_TONE_GATE, f"griffinlim_tone_err {tone_err} >= {GL_TONE_GATE}")
+    gl_launches = griffinlim.COUNT.launches
+    print(f"phase 10 slice: griffin_lim(n_iter=8) on {list(mag.shape)} -> ({PVOC_BATCH}, {t}), the "
+          f"Spectrogram -> GriffinLim graph -> ({PVOC_BATCH}, {n_frames * 256}), mel_to_audio -> "
+          f"({PVOC_BATCH}, {t}), all finite; griffinlim launches {counts} = {gl_launches}; mel_to_audio "
+          f"of 440 Hz peaks at {peak_hz:.3f} Hz; griffinlim_tone_err {tone_err:.4f} (gate {GL_TONE_GATE})")
+    del y
+
+    # phase 11: timing, alternating the matmul and kernel paths
+    runs = {
+        "griffin_lim": lambda impl: griffin_lim(mag, n_iter=8, length=t, impl=impl),
+        # the matmul form composes mel_to_audio's own steps: it has no impl switch
+        "mel_to_audio": lambda impl: mel_to_audio(mel, fb, length=t) if impl == "pallas" else griffin_lim(
+            torch.sqrt(torch.clamp_min(mel_to_stft(mel, fb), 0.0)), length=t, impl="matmul"),
+    }
+    for name, fn in runs.items():
+        times = {"pallas": [], "matmul": []}
+        for impl in ("matmul", "pallas", "pallas", "matmul", "matmul", "pallas"):
+            times[impl].append(cuda_ms(lambda impl=impl: fn(impl), 3, warmup=1))
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        print(f"phase 11 timing ({card}): {name} {audio_s:.1f} audio-s per run; kernel path "
+              f"{med['pallas']:.3f} ms = {audio_s / med['pallas'] * 1e3:.0f} audio-s/s, matmul path "
+              f"{med['matmul']:.3f} ms = {audio_s / med['matmul'] * 1e3:.0f} audio-s/s "
+              f"(runs, ms: {json.dumps(times)})")
+
     print(json.dumps({"kernels": [
         {
             "name": "melspec", "route": "cuda", "source": "audioflow_torch/csrc/melspec.cu",
@@ -318,6 +450,12 @@ def main() -> int:
             "replaces": "audioflow_tpu/ops/pallas/timestretch.py:358", "launches": ts_launches,
             "max_abs_err": ts_err, "ms": ts_ms, "plain_ms": tp_ms,
             "bound_ms": ts_bound, "bound_by": ts_by, "library_ms": None,
+        },
+        {
+            "name": "griffinlim", "route": "cuda", "source": "audioflow_torch/csrc/griffinlim.cu",
+            "replaces": "audioflow_tpu/ops/pallas/griffinlim.py:216", "launches": gl_launches,
+            "max_abs_err": gl_err, "ms": gk_ms, "plain_ms": gp_ms,
+            "bound_ms": gl_bound, "bound_by": gl_by, "library_ms": None,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from audioflow_torch.graph import GriffinLim, Spectrogram, chain
 from audioflow_torch.models import log_mel_frontend
-from audioflow_torch.ops import pitch_shift, time_stretch
-from audioflow_torch.ops.kernels import melspec, timestretch
+from audioflow_torch.ops import griffin_lim, mel_to_audio, pitch_shift, stft, time_stretch
+from audioflow_torch.ops.kernels import griffinlim, melspec, timestretch
 from audioflow_torch.ops.mel import mel_filterbank
 from audioflow_torch.ops.stft import dft_banks
 
@@ -173,3 +174,95 @@ def test_pitch_shift_on_card_matches_cpu(cuda_device):
     assert got.shape == want.shape == x.shape
     rel = np.abs(got - want)[:, :-1024].max() / np.abs(want).max()
     assert rel < 6e-3, rel
+
+
+def _magnitude(shape, n_fft=1024, hop=256, device="cpu"):
+    """|stft| of two tones plus noise per row, [rows, frames, n_fft//2 + 1]."""
+    return stft(torch.from_numpy(_tones(shape)).to(device), n_fft, hop).abs().contiguous()
+
+
+def _specconv(y, mag, n_fft=1024, hop=256):
+    m2 = stft(y, n_fft, hop).abs()[..., : mag.shape[-2], :]
+    return (torch.linalg.norm(m2 - mag) / torch.linalg.norm(mag)).item()
+
+
+# the main path's n_fft and hop; k = 2; an odd n_fft; a hop of 16 (64
+# segments, taken in groups); one frame
+@pytest.mark.parametrize(
+    "shape,n_fft,hop",
+    [((3, 16000), 1024, 256), ((2, 9001), 512, 256), ((2, 6000), 501, 167), ((1, 4096), 1024, 16),
+     ((2, 600), 1024, 256)],
+)
+def test_griffinlim_projection_matches_plain(cuda_device, shape, n_fft, hop):
+    mag = _magnitude(shape, n_fft, hop, cuda_device)
+    zeros = torch.zeros_like(mag)
+    before = griffinlim.COUNT.launches
+    got = griffinlim.griffin_lim_iteration(mag, zeros, mag, zeros, mag, 0.0, n_fft, hop)
+    torch.cuda.synchronize()
+    assert griffinlim.COUNT.launches == before + 1
+    d = griffinlim.designs(n_fft, hop, "hann", mag.shape[1], cuda_device)
+    want = griffinlim.griffin_lim_iteration_reference(mag, zeros, mag, zeros, mag, 0.0, *d)
+    # one projection is linear in the magnitude: fp32 sums in another order
+    peak = torch.maximum(want[0].abs().max(), want[1].abs().max())
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == mag.shape
+        assert ((g - w).abs().max() / peak).item() <= 1e-5
+
+
+def test_griffinlim_iterations_match_plain(cuda_device):
+    """8 iterations: kernel and plain version converge alike (elementwise
+    comparison is meaningless past the first magnitude replacement)."""
+    mag = _magnitude((4, 32000), device=cuda_device)
+    before = griffinlim.COUNT.launches
+    got = griffinlim.griffin_lim_fused(mag, n_iter=8)
+    torch.cuda.synchronize()
+    assert griffinlim.COUNT.launches == before + 8
+    want = griffinlim.griffin_lim_reference(mag, n_iter=8)
+    assert got.shape == want.shape == (4, mag.shape[1] * 256)
+    assert abs(_specconv(got, mag) - _specconv(want, mag)) <= 0.02
+
+
+def test_griffinlim_oracle_and_zeros(cuda_device):
+    x = torch.from_numpy(_tones((2, 24000))).to(cuda_device)
+    spec = stft(x, 1024, 256)
+    y = griffin_lim(spec.abs(), n_iter=2, init_phase=spec.angle(), length=x.shape[-1])
+    sl = slice(2048, x.shape[-1] - 2048)
+    assert ((y[:, sl] - x[:, sl]).abs().max() / x.abs().max()).item() < 1e-3
+    y = griffin_lim(torch.zeros(2, 12, 513, device=cuda_device), n_iter=3)
+    assert torch.equal(y, torch.zeros_like(y))
+
+
+def test_griffin_lim_auto_takes_the_kernel(cuda_device):
+    """impl="auto" on the card: one launch per iteration whatever the rank,
+    through the op, the node and mel_to_audio; the matmul path launches none."""
+    mag = _magnitude((6, 16000))
+    before = griffinlim.COUNT.launches
+    y = griffin_lim(mag.numpy(), n_iter=3)  # numpy input goes to the card
+    assert y.device.type == "cuda" and griffinlim.COUNT.launches == before + 3
+    y3 = griffin_lim(mag.reshape(2, 3, *mag.shape[1:]).to(cuda_device), n_iter=3)
+    assert griffinlim.COUNT.launches == before + 6 and y3.shape == (2, 3, y.shape[-1])
+    torch.testing.assert_close(y3.reshape(6, -1), y, rtol=0, atol=0)
+    griffin_lim(mag.to(cuda_device), n_iter=3, impl="matmul")
+    assert griffinlim.COUNT.launches == before + 6
+    g = chain(Spectrogram(512, 128, power=False), GriffinLim(512, 128, n_iter=4), input_rate=16000)
+    g.compile()(_tones((2, 8000)))
+    assert griffinlim.COUNT.launches == before + 10
+    fb = mel_filterbank(513, 128, 16000)
+    m = torch.matmul(mag.to(cuda_device) ** 2, torch.from_numpy(fb).to(cuda_device))
+    mel_to_audio(m, fb, gl_iter=5, nnls_iter=4)
+    assert griffinlim.COUNT.launches == before + 15
+
+
+def test_griffinlim_kernel_rejects_what_it_does_not_take(cuda_device):
+    mag = _magnitude((2, 8000), device=cuda_device)
+    zeros = torch.zeros_like(mag)
+    with pytest.raises(ValueError):
+        griffinlim.griffin_lim_iteration(mag.double(), zeros, mag, zeros, mag)
+    with pytest.raises(ValueError):
+        griffinlim.griffin_lim_iteration(mag.transpose(0, 1), zeros, mag, zeros, mag)  # shapes differ
+    with pytest.raises(ValueError):
+        griffinlim.griffin_lim_iteration(mag, zeros, mag, zeros.cpu(), mag)  # devices differ
+    with pytest.raises(ValueError):
+        griffin_lim(mag, impl="pallas", n_iter=0)
+    with pytest.raises(ValueError):
+        griffin_lim(mag, 1024, 300, impl="pallas")

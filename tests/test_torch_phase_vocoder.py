@@ -112,7 +112,7 @@ def test_banks_bit_identical(n_fft, window):
     # the JAX wrapper's synthesis banks (timestretch.py:428-431)
     ci, si = jstft._idft_banks(n_fft)
     w = jops.get_window(window, n_fft, periodic=True)
-    ciw, siw = tts.synthesis_banks(n_fft, window)
+    ciw, siw = tstft.synthesis_banks(n_fft, window)
     assert np.array_equal(ciw, (ci * w[None, :]).astype(np.float32))
     assert np.array_equal(siw, (si * w[None, :]).astype(np.float32))
     for a, b in zip(tstft._dft_banks(n_fft, window, None), jstft._dft_banks(n_fft, window, None)):
