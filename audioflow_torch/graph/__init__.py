@@ -7,14 +7,16 @@ from .nodes import (
     MelProject,
     Node,
     PitchShift,
+    Pyin,
     Resample,
     Spectrogram,
     TimeStretch,
+    Yin,
     node_registry,
     register_node,
 )
 
 __all__ = [
-    "Graph", "GriffinLim", "LogMelSpec", "MelProject", "Node", "PitchShift", "Resample", "Spectrogram",
-    "TimeStretch", "chain", "node_registry", "register_node",
+    "Graph", "GriffinLim", "LogMelSpec", "MelProject", "Node", "PitchShift", "Pyin", "Resample", "Spectrogram",
+    "TimeStretch", "Yin", "chain", "node_registry", "register_node",
 ]

@@ -25,6 +25,7 @@ from ..ops.griffinlim import griffin_lim
 from ..ops.kernels.melspec import mel_spectrogram
 from ..ops.mel import apply_mel, cached_filterbank, log_mel
 from ..ops.phase_vocoder import pitch_shift, time_stretch
+from ..ops.pitch import pyin, yin_voicing
 from ..ops.resample import (
     make_stream_plan,
     resample,
@@ -152,8 +153,8 @@ class Resample(Node):
 @dataclass(frozen=True)
 class _Framed(Node):
     """Streaming shared by the framing nodes: center=False frames of a
-    hop-aligned overlap carry (``Spectrogram``/``LogMelSpec`` in the JAX
-    package), so streamed frames are exactly the offline ones."""
+    hop-aligned overlap carry (``Spectrogram``/``LogMelSpec``/``Yin`` in the
+    JAX package), so streamed frames are exactly the offline ones."""
 
     domain_out = "frames"
 
@@ -177,9 +178,13 @@ class _Framed(Node):
         return n_in // self.hop
 
     @property
+    def _frame_length(self) -> int:
+        return self.n_fft
+
+    @property
     def _carry_len(self) -> int:
-        # hop-aligned history (>= n_fft - hop): 768 samples at n_fft 1024, hop 256
-        return (-(-self.n_fft // self.hop) - 1) * self.hop
+        # hop-aligned history (>= frame - hop): 768 samples at n_fft 1024, hop 256
+        return (-(-self._frame_length // self.hop) - 1) * self.hop
 
     def latency(self, n_in):
         return self._carry_len // self.hop
@@ -352,3 +357,86 @@ class GriffinLim(Node):
 
     def out_len(self, n_in):
         return n_in * self.hop
+
+
+@register_node
+@dataclass(frozen=True)
+class Yin(_Framed):
+    """YIN pitch tracker: samples -> per-frame ``[f0_hz, aperiodicity]``
+    ``[..., F, 2]`` (``ops.yin_voicing``). Streamable when center=False, with
+    the framing nodes' hop-aligned overlap carry, so streamed == offline
+    exactly."""
+
+    fmin: float = 65.0
+    fmax: float = 2093.0
+    frame_length: int = 2048
+    hop: int = 256
+    threshold: float = 0.1
+    center: bool = True
+    sample_rate: int | None = None
+    impl: str = "auto"
+    precision: str | None = None
+
+    @property
+    def _frame_length(self) -> int:
+        return self.frame_length
+
+    def _rate(self):
+        if self.sample_rate is None:
+            raise AudioError("Yin.sample_rate unresolved; set input_rate on the graph")
+        return self.sample_rate
+
+    def _track(self, x, center):
+        f0, ap = yin_voicing(
+            x, self._rate(), self.fmin, self.fmax, self.frame_length, self.hop,
+            self.threshold, center, self.impl, self.precision,
+        )
+        return torch.stack([f0, ap], dim=-1)
+
+    def apply(self, x):
+        return self._track(x, self.center)
+
+    def _frames(self, x):
+        return self._track(x, False)
+
+
+@register_node
+@dataclass(frozen=True)
+class Pyin(Node):
+    """pYIN probabilistic pitch tracker: samples -> per-frame ``[f0_hz,
+    voiced_flag, voiced_prob]`` stacked ``[..., F, 3]`` (``ops.pyin``;
+    voiced_flag is 0.0/1.0). The Viterbi decode spans the whole sequence, so
+    the node is offline only. On the card its forward pass is the CUDA
+    kernel, one launch per call."""
+
+    fmin: float = 65.0
+    fmax: float = 2093.0
+    frame_length: int = 2048
+    hop: int = 256
+    center: bool = True
+    resolution: float = 0.1
+    switch_prob: float = 0.01
+    sample_rate: int | None = None
+    impl: str = "auto"
+    precision: str | None = None
+    streamable = False
+
+    domain_out = "frames"
+
+    def _rate(self):
+        if self.sample_rate is None:
+            raise AudioError("Pyin.sample_rate unresolved; set input_rate on the graph")
+        return self.sample_rate
+
+    def apply(self, x):
+        f0, voiced, vprob = pyin(
+            x, self._rate(), self.fmin, self.fmax, self.frame_length, self.hop, self.center,
+            resolution=self.resolution, switch_prob=self.switch_prob, impl=self.impl,
+            precision=self.precision,
+        )
+        return torch.stack([f0, voiced.to(f0.dtype), vprob], dim=-1)
+
+    def out_len(self, n_in):
+        if self.center:
+            n_in = n_in + 2 * (self.frame_length // 2)
+        return (n_in - self.frame_length) // self.hop + 1

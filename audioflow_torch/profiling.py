@@ -1,14 +1,15 @@
 """Device-time breakdown of the port's paths on one CUDA card.
 
-    python -m audioflow_torch.profiling [logmel] [pvoc] [pitch] [griffinlim]
+    python -m audioflow_torch.profiling [logmel] [pvoc] [pitch] [griffinlim] [pyin]
 
 Each path runs in two variants at the JAX benchmark's sizes
-(``audioflow_tpu/bench.py``): through the hand-written kernel and through
-plain torch. For each variant it prints one JSON line: the untraced run's
-time (CUDA events, after a warm-up run), the traced run's wall time, the
-device's busy time under the trace (the sum of kernel self times, one
-stream), the idle shares, and the kernels by device time with their calls.
-Without a card it exits non-zero and prints no result.
+(``audioflow_tpu/bench.py``, ``BENCHMARKS.md``): through the hand-written
+kernel and through plain torch. For each variant it prints one JSON line:
+the untraced run's time (CUDA events, after a warm-up run), the traced
+run's wall time, the device's busy time under the trace (the sum of kernel
+self times, one stream), the idle shares, the device launches, and the
+kernels by device time with their calls. Without a card it exits non-zero
+and prints no result.
 
 * ``logmel``: ``log_mel_frontend(44100, 16000, 1024, 256, 128)`` streamed
   over 512 x 10 s in 14,112-sample chunks, fused (melspec kernel) vs the
@@ -18,7 +19,12 @@ Without a card it exits non-zero and prints no result.
 * ``pitch``: ``pitch_shift(x, 12.0)`` on the same batch, both impls;
 * ``griffinlim``: ``griffin_lim(mag, n_iter=8)`` on the magnitude
   ``[64, 626, 513]`` of the same batch (n_fft 1024, hop 256), ``impl="auto"``
-  (griffinlim kernel, one launch per iteration) vs ``"matmul"``.
+  (griffinlim kernel, one launch per iteration) vs ``"matmul"``;
+* ``pyin``: ``pyin(x)`` with its defaults (65-2093 Hz, frame 2048, hop 256,
+  0.1 semitone bins, 100 thresholds) on 64 x 10 s of the vibrato batch
+  (:func:`vibrato_batch`), ``viterbi_impl="auto"`` (viterbi kernel, one
+  launch) vs ``"xla"`` (the plain per-frame scan). Both variants share the
+  candidate stage, plain torch with thousands of small launches.
 """
 
 from __future__ import annotations
@@ -42,10 +48,21 @@ def tone_batch(batch: int, seconds: float, rate: int, seed: int = 0) -> np.ndarr
     return x.astype(np.float32)
 
 
+def vibrato_batch(batch: int = 64, seconds: float = 10.0, rate: int = 16000, seed: int = 0) -> np.ndarray:
+    """A copy of the JAX package's pYIN benchmark input
+    (``scripts/chip_r5_pyin2.py:31-47``): one row of a 110 Hz tone swept by
+    +-80 Hz at 0.3 Hz plus noise, repeated ``batch`` times."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(rate * seconds)) / rate
+    x = (0.4 * np.sin(2 * np.pi * (110 + 80 * np.sin(2 * np.pi * 0.3 * t)) * t)
+         + 0.02 * rng.standard_normal(t.shape)).astype(np.float32)
+    return np.broadcast_to(x, (batch, x.shape[0])).copy()
+
+
 def _paths(dev):
     """name -> (audio seconds, {variant: fn}), built lazily per path."""
     from .models import log_mel_frontend
-    from .ops import griffin_lim, pitch_shift, stft, time_stretch
+    from .ops import griffin_lim, pitch_shift, pyin, stft, time_stretch
 
     def logmel():
         chunk = 14112
@@ -65,11 +82,16 @@ def _paths(dev):
         return 640.0, {"kernel": lambda: griffin_lim(mag, n_iter=8, length=t),
                        "plain": lambda: griffin_lim(mag, n_iter=8, length=t, impl="matmul")}
 
+    def pyin_path():
+        x = torch.from_numpy(vibrato_batch()).to(dev)
+        return 640.0, {"kernel": lambda: pyin(x, 16000), "scan": lambda: pyin(x, 16000, viterbi_impl="xla")}
+
     return {
         "logmel": logmel,
         "pvoc": lambda: stretch(lambda x, impl: time_stretch(x, 1.25, impl=impl)),
         "pitch": lambda: stretch(lambda x, impl: pitch_shift(x, 12.0, impl=impl)),
         "griffinlim": griffinlim,
+        "pyin": pyin_path,
     }
 
 
@@ -100,6 +122,7 @@ def profile(fn) -> dict:
     busy = sum(k[1] for k in kernels)
     return {
         "untraced_ms": untraced_ms, "traced_ms": traced_ms, "busy_ms": busy,
+        "launches": sum(k[2] for k in kernels),
         "idle_traced": 1 - busy / traced_ms, "idle_untraced": 1 - busy / untraced_ms,
         "kernels": [{"name": n[:90], "ms": ms, "calls": c, "share": ms / busy} for n, ms, c in kernels[:12]],
     }

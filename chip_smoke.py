@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
-Drives the port's three ported paths through the hand-written CUDA kernels
+Drives the port's four ported paths through the hand-written CUDA kernels
 and checks them. The log-mel frontend
 ``log_mel_frontend(44100, 16000, 1024, 256, 128, center=False)`` streamed in
 14,112-sample chunks over a 512 x 10 s tone batch (kernel ``melspec``);
@@ -8,11 +8,14 @@ BASELINE config 4, time-stretch and pitch-shift, offline through
 ``Graph.compile()`` on a 64 x 10 s 16 kHz tone batch (kernel
 ``timestretch``); and Griffin-Lim phase reconstruction with the mel/MFCC
 inversion built on it, on the magnitude ``[64, 626, 513]`` of that batch
-(n_fft 1024, hop 256; kernel ``griffinlim``). Phases, each printing its own
-line:
+(n_fft 1024, hop 256; kernel ``griffinlim``); and pYIN pitch tracking with
+its defaults (65-2093 Hz, frame 2048, hop 256, 0.1 semitone bins, 100
+thresholds: 626 frames, 602 bins, a 139-tap band) on the JAX package's pYIN
+benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
+``viterbi``). Phases, each printing its own line:
 
 1. device: the ``nvidia-smi`` name and power-limit line;
-2. build: the three kernels built from ``audioflow_torch/csrc``, one nvcc
+2. build: the four kernels built from ``audioflow_torch/csrc``, one nvcc
    per source started together, with the seconds taken and ptxas's
    registers and spills;
 3. melspec kernel vs plain at the main path's step shape;
@@ -38,7 +41,19 @@ line:
     128 mels with its defaults (32) recovering a 440 Hz row, and the JAX
     package's ``griffinlim_tone_err`` gate (16);
 11. Griffin-Lim timing: ``griffin_lim`` (8 iterations) and ``mel_to_audio``
-    on the kernel path and the matmul path.
+    on the kernel path and the matmul path;
+12. viterbi kernel vs plain: the log observations ``[64, 626, 602]`` of the
+    pYIN batch computed once on the card, the kernel's ``dv``, ``du``,
+    ``off`` and ``pick`` exactly equal to the plain version's, and on a
+    tie-heavy synthetic case at 255 taps; ms per call of both against the
+    bound;
+13. pYIN slice, launches counted from 0: ``pyin(x)`` on numpy input (1
+    launch), the plain scan (``viterbi_impl="xla"``) decoding the same f0
+    and voicing, the ``Pyin`` node through ``Graph.compile()`` (1 launch),
+    and the JAX package's ``pyin_220_rel`` (1 launch) and ``yin_220_rel``
+    gates;
+14. pYIN timing: ``pyin`` through the kernel and through the plain scan,
+    alternated, and ``yin`` on the same batch, in audio-seconds per second.
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a card, or
@@ -93,6 +108,10 @@ GL_ORACLE_TOL = 1e-3
 # the JAX package's validate gate (griffinlim_tone_err), and its tone test
 GL_TONE_GATE = 0.2
 PEAK_HZ_TOL = 8.0
+# pYIN (BENCHMARKS.md "pyin (defaults: 0.1 st, 100 thresholds)"): 64 x 10 s
+PYIN_BATCH = 64
+# the JAX package's validate gates pyin_220_rel and yin_220_rel
+PITCH_GATE = 5e-3
 # the card's published peaks (H100 SXM data sheet): fp32 outside the tensor
 # cores, and device memory
 FP32_FLOPS = 67e12
@@ -135,16 +154,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; the port's smoke test runs only on one", file=sys.stderr)
         return 1
-    from audioflow_torch.graph import GriffinLim, Graph, PitchShift, Spectrogram, TimeStretch
+    from audioflow_torch.graph import GriffinLim, Graph, PitchShift, Pyin, Spectrogram, TimeStretch
     from audioflow_torch.models import log_mel_frontend
     from audioflow_torch.ops import (
-        apply_mel, griffin_lim, mel_filterbank, mel_to_audio, mel_to_stft, pitch_shift, power, stft,
-        time_stretch,
+        apply_mel, frame, griffin_lim, mel_filterbank, mel_to_audio, mel_to_stft, pitch_shift, power, pyin,
+        stft, time_stretch, yin,
     )
-    from audioflow_torch.ops.kernels import _build, griffinlim, melspec, timestretch
+    from audioflow_torch.ops import pitch as pitch_ops
+    from audioflow_torch.ops.kernels import _build, griffinlim, melspec, timestretch, viterbi
     from audioflow_torch.ops.mel import cached_filterbank
-    from audioflow_torch.ops.stft import dft_banks
-    from audioflow_torch.profiling import tone_batch
+    from audioflow_torch.ops.stft import dft_banks, pad_center
+    from audioflow_torch.profiling import tone_batch, vibrato_batch
     from audioflow_torch.utils.cache import on_device
 
     dev = torch.device("cuda")
@@ -157,7 +177,7 @@ def main() -> int:
     print(smi)
 
     # phase 2: one nvcc per source, started together
-    kernels = {"melspec": melspec, "timestretch": timestretch, "griffinlim": griffinlim}
+    kernels = {"melspec": melspec, "timestretch": timestretch, "griffinlim": griffinlim, "viterbi": viterbi}
     t0 = time.perf_counter()
     _build.build(*kernels)
     for k in kernels.values():
@@ -438,6 +458,107 @@ def main() -> int:
               f"{med['matmul']:.3f} ms = {audio_s / med['matmul'] * 1e3:.0f} audio-s/s "
               f"(runs, ms: {json.dumps(times)})")
 
+    del mag, zeros, mel, x, x_np, gd
+    torch.cuda.empty_cache()
+
+    # phase 12: the viterbi kernel against its plain version at full width
+    x_np = vibrato_batch(PYIN_BATCH, SECONDS, PVOC_RATE, SEED)
+    x = torch.from_numpy(x_np).to(dev)
+    fr = frame(pad_center(x, 2048), 2048, 256)
+    obs_v, voiced_prob, *_, n_bins, nbps = pitch_ops._pyin_observations(fr, PVOC_RATE, 65.0, 2093.0)
+    lv, lu = pitch_ops._pyin_log_obs(obs_v, voiced_prob, n_bins)
+    lv, lu = lv.movedim(-2, 0).contiguous(), lu.movedim(-2, 0).contiguous()  # [F, B, N]
+    half, lk, _, _ = pitch_ops._pyin_hmm_consts(PVOC_RATE, 256, nbps, 35.92, 0.01, dev)
+    vargs = (lk, -np.log(2 * n_bins), np.log1p(-0.01), np.log(0.01))
+    n_frames, k_taps = lv.shape[0], 2 * half + 1
+    check((n_frames, n_bins, k_taps) == (626, 602, 139), f"pyin shape {n_frames} frames, {n_bins} bins, {k_taps} taps")
+    got = viterbi.pyin_viterbi_forward(lv, lu, *vargs)
+    want = viterbi.pyin_viterbi_forward_reference(lv, lu, *vargs)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dv", "du", "off", "pick"), got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w), f"viterbi {name} differs from plain")
+    vit_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    raw_max = int(got[2].max()) + half
+    # a tie-heavy band of 255 taps: everything on a 0.5 grid, the unvoiced
+    # track constant per frame, every fifth frame quiet so that tracks switch
+    rng = np.random.default_rng(SEED)
+    tv_np = np.round(rng.uniform(-12, 0, (64, 8, 700)) * 2) / 2
+    tv_np[3::5] -= 10.0
+    tv = torch.from_numpy(tv_np.astype(np.float32)).to(dev)
+    tu = torch.from_numpy((np.round(rng.uniform(-12, 0, (64, 8, 1)) * 2) / 2).astype(np.float32)).to(dev)
+    tu = tu.expand(64, 8, 700).contiguous()
+    tk = -np.round(np.abs(np.arange(-127, 128)) / 8) / 2
+    tie = [viterbi.pyin_viterbi_forward(tv, tu, tk, -3.0, -0.5, -1.0),
+           viterbi.pyin_viterbi_forward_reference(tv, tu, tk, -3.0, -0.5, -1.0)]
+    for name, g, w in zip(("dv", "du", "off", "pick"), *tie):
+        check(torch.equal(g, w), f"viterbi {name} differs from plain on the 255-tap tie case")
+    del got, want, tie, tv, tu
+    vk_ms = cuda_ms(lambda: viterbi.pyin_viterbi_forward(lv, lu, *vargs), 10)
+    vp_ms = cuda_ms(lambda: viterbi.pyin_viterbi_forward_reference(lv, lu, *vargs), 2, warmup=1)
+    # an add and a max per tap, state and frame past the first, and the
+    # merge's 2 adds, compare, select and add per state; bytes: the two
+    # observation tensors in, the final messages and the int8 backpointers out
+    vit_states = 2 * PYIN_BATCH * n_bins
+    vit_flops = (n_frames - 1) * vit_states * (2 * k_taps + 5) + vit_states
+    vit_bytes = 4 * 2 * n_frames * PYIN_BATCH * n_bins + 4 * vit_states + 2 * n_frames * vit_states + 4 * k_taps
+    vit_bound, vit_by = bound_ms(vit_flops, vit_bytes)
+    print(f"phase 12 viterbi vs plain at [{n_frames}, {PYIN_BATCH}, {n_bins}], {k_taps} taps: dv, du, off, pick "
+          f"exactly equal (max|d| {vit_err}; raw offsets up to {raw_max}); 255-tap tie case [64, 8, 700] exactly "
+          f"equal; kernel {vk_ms:.4f} ms, plain {vp_ms:.4f} ms, bound {vit_bound:.4f} ms ({vit_by}: "
+          f"{vit_flops / 1e9:.3f} G operations, {vit_bytes / 1e6:.1f} MB; the kernel at "
+          f"{vit_flops / vk_ms / 1e9:.2f} T operations/s) ({card})")
+    del lv, lu, obs_v, voiced_prob, fr
+
+    # phase 13: the pYIN slice through the port's entry points, counted from 0
+    pyin_graph = Graph((Pyin(),), input_rate=PVOC_RATE).compile()
+    viterbi.COUNT.launches = 0
+    f0, vflag, vprob = pyin(x_np, PVOC_RATE)  # numpy input goes to the card
+    torch.cuda.synchronize()
+    counts = [viterbi.COUNT.launches]
+    check(counts[0] == 1, f"pyin launched the viterbi kernel {counts[0]} times")
+    check(f0.shape == vflag.shape == vprob.shape == (PYIN_BATCH, n_frames) and f0.device.type == "cuda",
+          f"pyin shapes {tuple(f0.shape)}")
+    check(bool(torch.isfinite(f0).all() and torch.isfinite(vprob).all()), "non-finite pyin output")
+    f0s, vflags, vprobs = pyin(x_np, PVOC_RATE, viterbi_impl="xla")
+    check(viterbi.COUNT.launches == 1, "the plain scan launched the viterbi kernel")
+    check(torch.equal(f0, f0s) and torch.equal(vflag, vflags), "kernel and scan decodes differ")
+    vprob_d = (vprob - vprobs).abs().max().item()
+    out = pyin_graph(x_np)
+    torch.cuda.synchronize()
+    counts.append(viterbi.COUNT.launches - sum(counts))
+    check(counts[1] == 1, f"the Pyin graph launched {counts[1]} times")
+    check(tuple(out.shape) == (PYIN_BATCH, n_frames, 3) and torch.equal(out[..., 0], f0), f"Pyin graph {out.shape}")
+    tt = np.arange(PVOC_RATE) / PVOC_RATE
+    xy = (0.5 * np.sin(2 * np.pi * 220.0 * tt)).astype(np.float32)
+    f0p, vfp, _ = pyin(xy, PVOC_RATE, fmin=80, fmax=1200, resolution=0.5, n_thresholds=32)
+    counts.append(viterbi.COUNT.launches - sum(counts))
+    check(counts[2] == 1, f"pyin_220_rel's pyin launched {counts[2]} times")
+    f0p, vfp = f0p.cpu().numpy()[4:-4], vfp.cpu().numpy()[4:-4]
+    pyin_220 = float(np.abs(f0p - 220.0).max() / 220.0) if vfp.all() else 1.0
+    check(pyin_220 < PITCH_GATE, f"pyin_220_rel {pyin_220} >= {PITCH_GATE}")
+    f0y = yin(xy, PVOC_RATE, fmin=80, fmax=1200).cpu().numpy()
+    yin_220 = float(np.abs(f0y[4:-4] - 220.0).max() / 220.0)
+    check(yin_220 < PITCH_GATE, f"yin_220_rel {yin_220} >= {PITCH_GATE}")
+    vit_launches = viterbi.COUNT.launches
+    voiced = vflag.float().mean().item()
+    print(f"phase 13 slice: pyin {PYIN_BATCH} x {x.shape[-1]} -> f0, voiced, prob ({PYIN_BATCH}, {n_frames}), "
+          f"finite, {voiced:.3f} of frames voiced; the plain scan decodes equal f0 and voicing (voiced prob "
+          f"max|d| {vprob_d:.3e}); the Pyin graph -> {tuple(out.shape)}; viterbi launches {counts} = "
+          f"{vit_launches}; pyin_220_rel {pyin_220:.3e}, yin_220_rel {yin_220:.3e} (gates {PITCH_GATE})")
+    del f0s, vflags, vprobs, out
+
+    # phase 14: timing, alternating the scan and kernel paths
+    audio_s = PYIN_BATCH * x.shape[-1] / PVOC_RATE
+    times = {"pallas": [], "xla": []}
+    for impl in ("xla", "pallas", "pallas", "xla", "xla", "pallas"):
+        times[impl].append(cuda_ms(lambda impl=impl: pyin(x, PVOC_RATE, viterbi_impl=impl), 2, warmup=1))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    yin_ms = cuda_ms(lambda: yin(x, PVOC_RATE), 3, warmup=1)
+    print(f"phase 14 timing ({card}): pyin {audio_s:.1f} audio-s per run; kernel path {med['pallas']:.3f} ms = "
+          f"{audio_s / med['pallas'] * 1e3:.0f} audio-s/s, plain scan {med['xla']:.3f} ms = "
+          f"{audio_s / med['xla'] * 1e3:.0f} audio-s/s (runs, ms: {json.dumps(times)}); yin {yin_ms:.3f} ms = "
+          f"{audio_s / yin_ms * 1e3:.0f} audio-s/s")
+
     print(json.dumps({"kernels": [
         {
             "name": "melspec", "route": "cuda", "source": "audioflow_torch/csrc/melspec.cu",
@@ -456,6 +577,12 @@ def main() -> int:
             "replaces": "audioflow_tpu/ops/pallas/griffinlim.py:216", "launches": gl_launches,
             "max_abs_err": gl_err, "ms": gk_ms, "plain_ms": gp_ms,
             "bound_ms": gl_bound, "bound_by": gl_by, "library_ms": None,
+        },
+        {
+            "name": "viterbi", "route": "cuda", "source": "audioflow_torch/csrc/viterbi.cu",
+            "replaces": "audioflow_tpu/ops/pallas/viterbi.py:124", "launches": vit_launches,
+            "max_abs_err": vit_err, "ms": vk_ms, "plain_ms": vp_ms,
+            "bound_ms": vit_bound, "bound_by": vit_by, "library_ms": None,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

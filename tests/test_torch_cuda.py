@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from audioflow_torch.graph import GriffinLim, Spectrogram, chain
+from audioflow_torch.graph import GriffinLim, Pyin, Spectrogram, chain
 from audioflow_torch.models import log_mel_frontend
-from audioflow_torch.ops import griffin_lim, mel_to_audio, pitch_shift, stft, time_stretch
-from audioflow_torch.ops.kernels import griffinlim, melspec, timestretch
+from audioflow_torch.ops import griffin_lim, mel_to_audio, pitch_shift, pyin, stft, time_stretch
+from audioflow_torch.ops.kernels import griffinlim, melspec, timestretch, viterbi
 from audioflow_torch.ops.mel import mel_filterbank
 from audioflow_torch.ops.stft import dft_banks
 
@@ -266,3 +266,94 @@ def test_griffinlim_kernel_rejects_what_it_does_not_take(cuda_device):
         griffin_lim(mag, impl="pallas", n_iter=0)
     with pytest.raises(ValueError):
         griffin_lim(mag, 1024, 300, impl="pallas")
+
+
+def _tie_heavy(shape, taps, seed=0, rising=False):
+    """``(log_obs_v, log_obs_u, log_kernel, log_init, log_stay, log_switch)``
+    all on a 0.5 grid, so that every sum is exact in f32 and ties abound: the
+    unvoiced track constant per frame, as pYIN's is, with every fifth frame
+    quiet so that the tracks switch; a flat-topped triangular log-kernel of
+    ``taps`` taps, or with ``rising`` one that favours the farthest source
+    above, so that offsets reach 2*half."""
+    rng = np.random.default_rng(seed)
+    ov = np.round(rng.uniform(-12, 0, shape) * 2) / 2
+    ov[3::5] -= 10.0
+    ou = np.broadcast_to(np.round(rng.uniform(-12, 0, shape[:-1] + (1,)) * 2) / 2, shape)
+    half = taps // 2
+    k = np.arange(2 * half + 1)
+    lk = -np.round((2 * half - k if rising else np.abs(k - half)) / 8) / 2
+    obs = (torch.from_numpy(a.astype(np.float32)) for a in (ov, np.ascontiguousarray(ou)))
+    return (*obs, lk, -3.0, -0.5, -1.0)
+
+
+# the 0.5-semitone band of the tests, the pYIN defaults' 139 taps (offsets
+# past 127), and the widest band int8 offsets take
+@pytest.mark.parametrize("shape,taps,rising", [((30, 3, 40), 11, False), ((40, 4, 300), 139, True),
+                                               ((25, 2, 400), 255, False)])
+def test_viterbi_kernel_matches_plain_exactly(cuda_device, shape, taps, rising):
+    ov, ou, *args = _tie_heavy(shape, taps, rising=rising)
+    before = viterbi.COUNT.launches
+    got = viterbi.pyin_viterbi_forward(ov.to(cuda_device), ou.to(cuda_device), *args)
+    torch.cuda.synchronize()
+    assert viterbi.COUNT.launches == before + 1
+    want = viterbi.pyin_viterbi_forward_reference(ov.to(cuda_device), ou.to(cuda_device), *args)
+    for name, g, w in zip(("dv", "du", "off", "pick"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+    # both tracks switch somewhere; at 139 and 255 taps some offsets pass 127
+    assert int(got[3][:, 0].max()) == 1 and int(got[3][:, 1].max()) == 1
+    assert taps < 139 or int(got[2].max()) + taps // 2 > 127
+
+
+def test_viterbi_kernel_takes_leading_axes(cuda_device):
+    ov, ou, *args = _tie_heavy((20, 6, 100), 29, seed=1)
+    ov, ou = ov.to(cuda_device), ou.to(cuda_device)
+    before = viterbi.COUNT.launches
+    got = viterbi.pyin_viterbi_forward(ov.reshape(20, 2, 3, 100), ou.reshape(20, 2, 3, 100), *args)
+    assert viterbi.COUNT.launches == before + 1
+    want = viterbi.pyin_viterbi_forward(ov, ou, *args)
+    assert got[0].shape == (2, 3, 100) and got[2].shape == (20, 2, 2, 3, 100)
+    for g, w in zip(got, want):
+        assert torch.equal(g.reshape(w.shape), w)
+    one = viterbi.pyin_viterbi_forward(ov[:, 0], ou[:, 0], *args)  # [F, N]: one row
+    assert one[0].shape == (100,) and torch.equal(one[2], want[2][:, :, 0])
+
+
+def _vibrato(seconds=1.0, sr=16000, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(sr * seconds)) / sr
+    x = 0.5 * np.sin(2 * np.pi * (220 + 8 * np.sin(2 * np.pi * 3 * t)) * t)
+    x[6000:8000] = 0.001 * rng.standard_normal(2000)  # unvoiced gap
+    return np.stack([x, np.roll(x, 1000)]).astype(np.float32)
+
+
+def test_pyin_auto_takes_the_kernel(cuda_device):
+    """pyin's defaults on the card: one launch per call, the decode equal to
+    the plain scan's; the Pyin node the same through Graph.compile()."""
+    x = _vibrato()
+    before = viterbi.COUNT.launches
+    f0, vf, vp = pyin(x, 16000)  # numpy goes to the card
+    assert f0.device.type == "cuda" and viterbi.COUNT.launches == before + 1
+    f0s, vfs, vps = pyin(x, 16000, viterbi_impl="xla")
+    assert viterbi.COUNT.launches == before + 1
+    assert torch.equal(f0, f0s) and torch.equal(vf, vfs) and torch.equal(vp, vps)
+    pyin(torch.from_numpy(x).to(cuda_device), 16000, viterbi_impl="pallas", resolution=0.5)
+    assert viterbi.COUNT.launches == before + 2
+    out = chain(Pyin(), input_rate=16000).compile()(x)
+    assert viterbi.COUNT.launches == before + 3
+    assert out.shape == (2, f0.shape[-1], 3) and torch.equal(out[..., 0], f0)
+
+
+def test_viterbi_kernel_rejects_what_it_does_not_take(cuda_device):
+    ov, ou, lk, *_ = _tie_heavy((5, 2, 50), 11)
+    ov, ou = ov.to(cuda_device), ou.to(cuda_device)
+    with pytest.raises(ValueError):
+        viterbi.pyin_viterbi_forward(ov, ou, np.zeros(10), -5.0, -0.01, -4.6)  # even taps
+    with pytest.raises(ValueError):
+        viterbi.pyin_viterbi_forward(ov, ou, np.zeros(257), -5.0, -0.01, -4.6)  # over int8
+    with pytest.raises(ValueError):
+        viterbi.pyin_viterbi_forward(ov.double(), ou.double(), lk, -5.0, -0.01, -4.6)
+    with pytest.raises(ValueError):
+        viterbi.pyin_viterbi_forward(ov, ou.cpu(), lk, -5.0, -0.01, -4.6)
+    with pytest.raises(ValueError):  # 277 taps at 0.05 semitones
+        pyin(_vibrato(0.5), 16000, resolution=0.05, viterbi_impl="pallas")
