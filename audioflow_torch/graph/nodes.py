@@ -33,7 +33,7 @@ from ..ops.resample import (
     resample_stream_step,
     stream_chunk_multiple,
 )
-from ..ops.stft import dft_banks, pad_center, spectrogram
+from ..ops.stft import dft_banks, pad_center, padded_window, spectrogram
 from ..utils.cache import on_device
 
 _REGISTRY: dict[str, type] = {}
@@ -262,8 +262,9 @@ class LogMelSpec(_Framed):
 
     def _frames(self, x):
         cosb, sinb = dft_banks(self.n_fft, self.window, self.win_length, x.device)
+        w = on_device(padded_window(self.n_fft, self.window, self.win_length), x.device)
         fb = on_device(self._fb(), x.device)
-        return mel_spectrogram(x.contiguous(), cosb, sinb, fb, self.hop, self.log, self.floor)
+        return mel_spectrogram(x.contiguous(), cosb, sinb, w, fb, self.hop, self.log, self.floor)
 
     def apply(self, x):
         return self._frames(pad_center(x, self.n_fft) if self.center else x)

@@ -7,13 +7,18 @@ is one fast Griffin-Lim iteration on state planes ``[batch, F, n_bins]``:
 1. momentum extrapolation and magnitude replacement of the rebuilt spectra
    ``r`` (this iteration's) and ``r2`` (the previous one's):
    ``a = (1+m)·r − m·r2``, ``s = mag·a / max(|a|, 1e-16)``;
-2. windowed inverse real DFT of ``s`` (synthesis window folded into the
-   banks), overlap-add into ``F + k − 1`` hop-rows (``k = n_fft/hop``),
-   times the WOLA row inverse ``inv``;
+2. windowed inverse real DFT of ``s``, overlap-add into ``F + k − 1``
+   hop-rows (``k = n_fft/hop``), times the WOLA row inverse ``inv``;
 3. windowed real DFT of every frame of that raw row stream: frame f reads
    rows ``[f, f + k)``, with no padding. This is the Pallas kernel's edge
    convention: the matmul path re-analyses the centre-trimmed signal with
    reflect padding, so its first two frames and its last differ by design.
+
+The kernel has two paths behind one launch, chosen by shape
+(:func:`kernel_path`): for a power-of-two n_fft from 16 to 2048 with
+``k <= 16``, one fused pass on a shared-memory FFT (``csrc/fft.cuh``; the
+window and twiddles of :func:`designs`); for every other configuration that
+:func:`supported` takes, two passes of dense DFT products against the banks.
 
 :func:`griffin_lim_fused` runs ``n_iter`` iterations around it as the JAX
 wrapper does (``pallas/griffinlim.py:354-393``): state seeded with
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,15 +47,20 @@ from ...utils.cache import BoundedCache, on_device
 from .._mm import mm
 from ..framing import frame, overlap_add
 from ..stft import Banks, istft, kernel_banks, padded_window
+from . import fft
 from ._build import load
 from .melspec import LaunchCount
 
 # shared memory one block may use on Hopper (227 KB of the SM's 256 KB)
 _MAX_SMEM = 232_448
-# mirrors of dft.cuh's kFrames and kRows, so that supported() needs no
-# build; the wrapper checks the mirror against the library
+# mirrors of dft.cuh's kFrames and kRows and of griffinlim.cu's FFT-path
+# constants, so that supported() and kernel_path() need no build; the
+# wrapper checks the mirrors against the library
 _FRAMES = 16
 _ROWS = 16
+_MAX_FFT_K = 16
+_WARPS = 8  # frames an FFT-path block transforms at once, one per warp
+_FFT_TILE = 16
 
 COUNT = LaunchCount()
 
@@ -61,11 +72,13 @@ _INV_CACHE = BoundedCache(maxsize=16)
 def _lib() -> ctypes.CDLL:
     lib = load("griffinlim")
     lib.griffinlim_iter_launch.argtypes = (
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     )
     lib.griffinlim_iter_launch.restype = ctypes.c_int
     lib.griffinlim_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.griffinlim_smem_bytes.restype = ctypes.c_longlong
+    lib.griffinlim_path.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.griffinlim_path.restype = ctypes.c_int
     return lib
 
 
@@ -82,11 +95,42 @@ def _segment_group(n_fft: int, hop: int) -> int:
     return min(n_fft // hop, _MAX_SMEM // (8 * kpad) - _ROWS + 1)
 
 
-def smem_bytes(n_fft: int, hop: int) -> int:
-    """Dynamic shared memory of the kernel's larger block: the analysis
+def _dense_smem_bytes(n_fft: int, hop: int) -> int:
+    """Dynamic shared memory of the dense path's larger block: the analysis
     block's staged frames, or the synthesis block's staged spectra."""
     kpad = (n_fft // 2 + 1 + 3) & ~3
     return 4 * max(_FRAMES * ((n_fft + 3) & ~3), 2 * (_ROWS + _segment_group(n_fft, hop) - 1) * kpad)
+
+
+def _fft_smem_bytes(n_fft: int, hop: int, tile: int) -> int:
+    """Dynamic shared memory of an FFT-path block of ``tile`` output frames:
+    the twiddles, a frame slot per warp and the block's hop-rows."""
+    m = n_fft // 2
+    slot = 2 * (m + (m >> 5))
+    return 8 * m + 4 * (_WARPS * slot + (tile + n_fft // hop - 1) * hop)
+
+
+def fft_tile(n_fft: int, hop: int) -> int:
+    """Output frames per block of the FFT path, or 0 where the configuration
+    takes the dense path: an n_fft that is not a power of two from 16 to
+    2048, or ``n_fft/hop`` above 16."""
+    if not fft.is_fft_size(n_fft) or n_fft // hop > _MAX_FFT_K:
+        return 0
+    return _FFT_TILE if _fft_smem_bytes(n_fft, hop, _FFT_TILE) <= _MAX_SMEM else 0
+
+
+def kernel_path(n_fft: int, hop: int) -> str:
+    """The path the kernel takes for a supported configuration, chosen by
+    shape: ``"fft"`` (one fused pass on the shared-memory FFT) or
+    ``"dense"`` (two passes of dense DFT products)."""
+    return "fft" if fft_tile(n_fft, hop) else "dense"
+
+
+def smem_bytes(n_fft: int, hop: int) -> int:
+    """Dynamic shared memory of the largest block of the path the kernel
+    takes (:func:`kernel_path`)."""
+    tile = fft_tile(n_fft, hop)
+    return _fft_smem_bytes(n_fft, hop, tile) if tile else _dense_smem_bytes(n_fft, hop)
 
 
 def supported(
@@ -95,17 +139,17 @@ def supported(
     """True when the fused kernel takes this configuration.
 
     It asks for the full-length window, hop | n_fft with ``n_fft/hop >= 2``,
-    and blocks that fit in shared memory (:func:`smem_bytes`; n_fft up to
-    about 3,600 at any such hop). ``precision`` is accepted for parity: the
-    kernel computes in fp32 whatever it says. The JAX predicate asks the
-    TPU kernel's VMEM model (``_pick_tile``, ``_vmem_estimate``), which
-    rejects n_fft 2048 at hop 64 or 1024 at hop 8, and n_fft above about
-    2,400 at every hop. That model does not describe this card: this
+    and dense-path blocks that fit in shared memory (n_fft up to about
+    3,600 at any such hop); :func:`kernel_path` then says which path runs.
+    ``precision`` is accepted for parity: the kernel computes in fp32
+    whatever it says. The JAX predicate asks the TPU kernel's VMEM model
+    (``_pick_tile``, ``_vmem_estimate``), which rejects n_fft 2048 at hop 64
+    or 1024 at hop 8, and n_fft above about 2,400 at every hop. That model does not describe this card: this
     predicate accepts every configuration the JAX one accepts, and more.
     """
     if win_length not in (None, n_fft) or hop < 1 or n_fft < 2 or n_fft % hop or n_fft // hop < 2:
         return False
-    return _segment_group(n_fft, hop) >= 1 and smem_bytes(n_fft, hop) <= _MAX_SMEM
+    return _segment_group(n_fft, hop) >= 1 and _dense_smem_bytes(n_fft, hop) <= _MAX_SMEM
 
 
 def wola_inverse(n_fft: int, hop: int, window: str, n_frames: int) -> np.ndarray:
@@ -125,10 +169,24 @@ def wola_inverse(n_fft: int, hop: int, window: str, n_frames: int) -> np.ndarray
     return _INV_CACHE[key]
 
 
-def designs(n_fft: int, hop: int, window: str, n_frames: int, device) -> tuple[Banks, torch.Tensor]:
-    """The host designs of a call on ``device`` (uploaded once per device):
-    the analysis and synthesis banks, and the WOLA row inverse."""
-    return kernel_banks(n_fft, window, device), on_device(wola_inverse(n_fft, hop, window, n_frames), device)
+class Designs(NamedTuple):
+    """The host designs of a call, float32 on one device: the analysis and
+    synthesis banks (the dense path and the plain version), the WOLA row
+    inverse ``[F + k - 1, hop]``, and for the FFT path the window ``[n_fft]``
+    (analysis and synthesis alike) and the twiddles ``[n_fft/2, 2]``."""
+
+    banks: Banks
+    inv: torch.Tensor
+    window: torch.Tensor
+    twiddles: torch.Tensor
+
+
+def designs(n_fft: int, hop: int, window: str, n_frames: int, device) -> Designs:
+    """The :class:`Designs` of a call on ``device`` (uploaded once per device)."""
+    return Designs(
+        kernel_banks(n_fft, window, device), on_device(wola_inverse(n_fft, hop, window, n_frames), device),
+        on_device(padded_window(n_fft, window), device), on_device(fft.twiddles(n_fft), device),
+    )
 
 
 def _coefficients(momentum: float) -> tuple[float, float]:
@@ -148,11 +206,12 @@ def replace_magnitude(r_re, r_im, r2_re, r2_im, mag, momentum: float):
     return mag * (a_re / guard), mag * (a_im / guard)
 
 
-def griffin_lim_iteration_reference(r_re, r_im, r2_re, r2_im, mag, momentum: float, bk: Banks, inv):
+def griffin_lim_iteration_reference(r_re, r_im, r2_re, r2_im, mag, momentum: float, d: Designs):
     """Plain torch, one iteration on ``[batch, F, n_bins]`` planes with the
-    designs of :func:`designs`: the prologue, the inverse DFT with the
-    synthesis banks, ``overlap_add``, the row inverse, ``frame`` and the
-    analysis banks. Returns ``(o_re, o_im)``."""
+    :func:`designs` ``d``: the prologue, the inverse DFT with the synthesis
+    banks, ``overlap_add``, the row inverse, ``frame`` and the analysis
+    banks. Returns ``(o_re, o_im)``."""
+    bk, inv = d.banks, d.inv
     s_re, s_im = replace_magnitude(r_re, r_im, r2_re, r2_im, mag, momentum)
     frames = mm(s_re, bk.icos) + mm(s_im, bk.isin)
     n_fft, hop = bk.icos.shape[1], inv.shape[1]
@@ -161,7 +220,7 @@ def griffin_lim_iteration_reference(r_re, r_im, r2_re, r2_im, mag, momentum: flo
     return mm(fr, bk.cos), mm(fr, bk.sin)
 
 
-def _launch(r_re, r_im, r2_re, r2_im, mag, momentum: float, bk: Banks, inv):
+def _launch(r_re, r_im, r2_re, r2_im, mag, momentum: float, d: Designs):
     """The kernel on CUDA planes: one launch, counted."""
     planes = (r_re, r_im, r2_re, r2_im, mag)
     if any(p.dtype != torch.float32 for p in planes):
@@ -169,20 +228,25 @@ def _launch(r_re, r_im, r2_re, r2_im, mag, momentum: float, bk: Banks, inv):
     if not all(p.is_contiguous() for p in planes):
         raise ValueError("the kernel takes contiguous state planes")
     batch, n_frames, n_bins = mag.shape
-    n_fft, (n_rows, hop) = bk.icos.shape[1], inv.shape
+    n_fft, (n_rows, hop) = d.banks.icos.shape[1], d.inv.shape
     if batch * max(n_frames * n_bins, n_rows * hop) >= 2**31:
         raise ValueError(f"batch {batch} x {n_frames} frames is too large for one call")
     lib = _lib()
-    smem = lib.griffinlim_smem_bytes(n_fft, hop)
-    if smem != smem_bytes(n_fft, hop):
-        raise RuntimeError(f"smem_bytes() is out of date with griffinlim.cu: {smem_bytes(n_fft, hop)} vs {smem}")
-    sig = torch.empty((batch, n_rows, hop), dtype=torch.float32, device=mag.device)
+    tile, smem = lib.griffinlim_path(n_fft, hop), lib.griffinlim_smem_bytes(n_fft, hop)
+    if (tile, smem) != (fft_tile(n_fft, hop), smem_bytes(n_fft, hop)):
+        raise RuntimeError(
+            f"fft_tile()/smem_bytes() are out of date with griffinlim.cu: "
+            f"{(fft_tile(n_fft, hop), smem_bytes(n_fft, hop))} vs {(tile, smem)}"
+        )
+    # the row stream is scratch of the dense path only
+    sig = None if tile else torch.empty((batch, n_rows, hop), dtype=torch.float32, device=mag.device)
     o_re, o_im = torch.empty_like(mag), torch.empty_like(mag)
     c1, m = _coefficients(momentum)
     with torch.cuda.device(mag.device):
         err = lib.griffinlim_iter_launch(
-            *(p.data_ptr() for p in planes), *(t.data_ptr() for t in bk), inv.data_ptr(),
-            sig.data_ptr(), o_re.data_ptr(), o_im.data_ptr(),
+            *(p.data_ptr() for p in planes), d.window.data_ptr(), d.twiddles.data_ptr(),
+            *(t.data_ptr() for t in d.banks), d.inv.data_ptr(),
+            None if sig is None else sig.data_ptr(), o_re.data_ptr(), o_im.data_ptr(),
             batch, n_frames, n_fft, hop, c1, m, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -191,13 +255,13 @@ def _launch(r_re, r_im, r2_re, r2_im, mag, momentum: float, bk: Banks, inv):
     return o_re, o_im
 
 
-def _iterate(r_re, r_im, r2_re, r2_im, mag, momentum: float, bk: Banks, inv):
+def _iterate(r_re, r_im, r2_re, r2_im, mag, momentum: float, d: Designs):
     """The plain version for planes on the CPU, the kernel on the card."""
     if mag.device.type in ("cpu", "meta"):
-        return griffin_lim_iteration_reference(r_re, r_im, r2_re, r2_im, mag, momentum, bk, inv)
+        return griffin_lim_iteration_reference(r_re, r_im, r2_re, r2_im, mag, momentum, d)
     if mag.device.type != "cuda":
         raise ValueError(f"griffin_lim_iteration runs on cpu or cuda tensors, not {mag.device.type}")
-    return _launch(r_re, r_im, r2_re, r2_im, mag, momentum, bk, inv)
+    return _launch(r_re, r_im, r2_re, r2_im, mag, momentum, d)
 
 
 def griffin_lim_iteration(
@@ -224,7 +288,7 @@ def griffin_lim_iteration(
         raise ValueError(f"state planes differ: {[(tuple(p.shape), str(p.device)) for p in planes]}")
     if not supported(n_fft, hop):
         raise ValueError(f"unsupported (n_fft={n_fft}, hop={hop}) for the fused kernel")
-    return _iterate(*planes, momentum, *designs(n_fft, hop, window, shape[1], mag.device))
+    return _iterate(*planes, momentum, designs(n_fft, hop, window, shape[1], mag.device))
 
 
 def _loop(step, mag, n_fft, hop, window, n_iter, momentum, length, init_phase, precision):
@@ -248,7 +312,7 @@ def _loop(step, mag, n_fft, hop, window, n_iter, momentum, length, init_phase, p
     if n_bins != n_fft // 2 + 1:
         raise ValueError(f"mag has {n_bins} bins; expected {n_fft // 2 + 1}")
     mag = mag.to(torch.float32).reshape(-1, n_frames, n_bins).contiguous()
-    bk, inv = designs(n_fft, hop, window, n_frames, mag.device)
+    d = designs(n_fft, hop, window, n_frames, mag.device)
 
     # r_{-1} = r_{-2} = mag·e^{iφ}: the first prologue gives spec_0 exactly
     if init_phase is None:
@@ -256,11 +320,11 @@ def _loop(step, mag, n_fft, hop, window, n_iter, momentum, length, init_phase, p
     else:
         ph = as_tensor(init_phase, mag.device).to(torch.float32).reshape(mag.shape)
         r_re, r_im = (mag * torch.cos(ph)).contiguous(), (mag * torch.sin(ph)).contiguous()
-    r_re, r_im = step(r_re, r_im, r_re, r_im, mag, momentum, bk, inv)
+    r_re, r_im = step(r_re, r_im, r_re, r_im, mag, momentum, d)
     # librosa's momentum history starts at prev_0 = 0
     r2_re, r2_im = torch.zeros_like(mag), torch.zeros_like(mag)
     for _ in range(n_iter - 1):
-        (r_re, r_im), r2_re, r2_im = step(r_re, r_im, r2_re, r2_im, mag, momentum, bk, inv), r_re, r_im
+        (r_re, r_im), r2_re, r2_im = step(r_re, r_im, r2_re, r2_im, mag, momentum, d), r_re, r_im
 
     s_re, s_im = replace_magnitude(r_re, r_im, r2_re, r2_im, mag, momentum)
     y = istft(torch.complex(s_re, s_im), n_fft, hop, window=window, center=True, length=length,

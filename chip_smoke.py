@@ -18,7 +18,11 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
 2. build: the four kernels built from ``audioflow_torch/csrc``, one nvcc
    per source started together, with the seconds taken and ptxas's
    registers and spills;
-3. melspec kernel vs plain at the main path's step shape;
+3. melspec kernel vs plain at the main path's step shape, with the path it
+   took (checked to be ``fft``), its dense path at n_fft 400, hop 160 on 8
+   rows, and the same function composed from ``torch.fft.rfft`` (cuFFT)
+   and plain torch timed beside it as a yardstick; the three timed by their
+   device time under torch.profiler, as in phase 9;
 4. melspec slice: shape, finiteness, launch count, and agreement with the
    plain two-node graph (Spectrogram + MelProject);
 5. melspec timing: the slice, kernel path and plain path, in audio-seconds
@@ -32,9 +36,12 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
 8. time-stretch timing: ``time_stretch`` and ``pitch_shift`` on the kernel
    path and the matmul path, and the kernel per call against its plain
    version and its bound;
-9. griffinlim kernel vs plain at ``[64, 626, 513]``: one projection
-   elementwise, 8 iterations by spectral convergence, the true-phase
-   oracle, and the ms per iteration of both against the bound;
+9. griffinlim kernel vs plain at ``[64, 626, 513]``: the path it took
+   (checked to be ``fft``), one projection elementwise, its dense path at
+   n_fft 501, hop 167 on 8 rows, two launches on the same input bitwise
+   equal, 8 iterations by spectral convergence, the true-phase oracle, and
+   the ms per iteration of kernel, plain version and a cuFFT composition
+   (``torch.fft.irfft``/``rfft`` and plain torch) against the bound;
 10. Griffin-Lim slice, launches counted from 0: ``griffin_lim(mag,
     n_iter=8)`` (8 launches), the ``Spectrogram(power=False)`` ->
     ``GriffinLim(n_iter=8)`` graph on numpy input (8), ``mel_to_audio`` at
@@ -55,7 +62,8 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
 14. pYIN timing: ``pyin`` through the kernel and through the plain scan,
     alternated, and ``yin`` on the same batch, in audio-seconds per second.
 
-Then one JSON line of per-kernel numbers, and last
+Then one JSON line of per-kernel numbers (with ``path`` and ``cufft_ms``
+for the two kernels built on the shared-memory FFT), and last
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a card, or
 without the package beside it, it exits non-zero and prints no result.
 
@@ -150,6 +158,23 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call of ``fn``: the self times of its
+    kernels under torch.profiler, summed. Unlike :func:`cuda_ms` it does not
+    count the card's idle gaps, so a kernel shorter than its wrapper's host
+    work is timed by the card, not by the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; the port's smoke test runs only on one", file=sys.stderr)
@@ -162,8 +187,9 @@ def main() -> int:
     )
     from audioflow_torch.ops import pitch as pitch_ops
     from audioflow_torch.ops.kernels import _build, griffinlim, melspec, timestretch, viterbi
-    from audioflow_torch.ops.mel import cached_filterbank
-    from audioflow_torch.ops.stft import dft_banks, pad_center
+    from audioflow_torch.ops.framing import overlap_add
+    from audioflow_torch.ops.mel import cached_filterbank, floor_log
+    from audioflow_torch.ops.stft import dft_banks, pad_center, padded_window
     from audioflow_torch.profiling import tone_batch, vibrato_batch
     from audioflow_torch.utils.cache import on_device
 
@@ -196,18 +222,43 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     xs = torch.from_numpy(rng.standard_normal((BATCH, 5888)).astype(np.float32)).to(dev)
     cosb, sinb = dft_banks(1024, "hann", None, dev)
+    win = on_device(padded_window(1024, "hann"), dev)
     fb = on_device(cached_filterbank(513, 128, 16000, 0.0, None, False, "slaney"), dev)
-    got = melspec.mel_spectrogram(xs, cosb, sinb, fb, 256)
+    ms_path = melspec.kernel_path(1024)
+    check(ms_path == "fft", f"melspec takes the {ms_path} path at n_fft 1024")
+    got = melspec.mel_spectrogram(xs, cosb, sinb, win, fb, 256)
     want = melspec.mel_spectrogram_reference(xs, cosb, sinb, fb, 256)
     torch.cuda.synchronize()
     check(got.shape == want.shape == (BATCH, 20, 128), f"shapes {got.shape}, {want.shape}")
     kernel_err = (got - want).abs().max().item()
     check(kernel_err <= KERNEL_TOL, f"kernel vs plain max|d| {kernel_err} > {KERNEL_TOL}")
-    k_ms = cuda_ms(lambda: melspec.mel_spectrogram(xs, cosb, sinb, fb, 256), 20)
-    p_ms = cuda_ms(lambda: melspec.mel_spectrogram_reference(xs, cosb, sinb, fb, 256), 20)
-    print(f"phase 3 kernel vs plain at [{BATCH}, 5888] -> [{BATCH}, 20, 128]: max|d| {kernel_err:.3e} "
-          f"(tol {KERNEL_TOL}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
-    del xs, got, want
+    # the dense path at Whisper's and Kaldi's n_fft 400, hop 160, on 8 rows
+    xd = xs[:8].contiguous()
+    dense_args = (*dft_banks(400, "hann", None, dev), on_device(padded_window(400, "hann"), dev),
+                  on_device(cached_filterbank(201, 80, 16000, 0.0, None, False, "slaney"), dev))
+    check(melspec.kernel_path(400) == "dense", "melspec at n_fft 400 does not take the dense path")
+    dense_err = (melspec.mel_spectrogram(xd, *dense_args, 160)
+                 - melspec.mel_spectrogram_reference(xd, *dense_args[:2], dense_args[3], 160)).abs().max().item()
+    check(dense_err <= KERNEL_TOL, f"dense melspec vs plain max|d| {dense_err} > {KERNEL_TOL}")
+
+    def mel_cufft():  # the same function from cuFFT and plain torch: a yardstick the port never calls
+        spec = torch.fft.rfft(xs.unfold(-1, 1024, 256) * win)
+        return floor_log(torch.matmul(spec.real * spec.real + spec.imag * spec.imag, fb), 1e-10, "ln")
+
+    cufft_err = (mel_cufft() - want).abs().max().item()
+    kc_err = (got - mel_cufft()).abs().max().item()
+    # device time: at about 0.05 ms the kernel is shorter than its wrapper's
+    # host work, so back-to-back CUDA events would time the host
+    k_ms = device_ms(lambda: melspec.mel_spectrogram(xs, cosb, sinb, win, fb, 256), 20)
+    p_ms = device_ms(lambda: melspec.mel_spectrogram_reference(xs, cosb, sinb, fb, 256), 20)
+    c_ms = device_ms(mel_cufft, 20)
+    fb_nnz = int((fb != 0).sum())
+    print(f"phase 3 kernel vs plain at [{BATCH}, 5888] -> [{BATCH}, 20, 128], path {ms_path}: max|d| "
+          f"{kernel_err:.3e} (tol {KERNEL_TOL}); dense path at n_fft 400, hop 160 on 8 rows: max|d| "
+          f"{dense_err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, cuFFT composition {c_ms:.4f} ms "
+          f"(max|d| {cufft_err:.3e}; kernel vs cuFFT {kc_err:.3e}); filterbank {fb_nnz} nonzeros of "
+          f"{fb.numel()} ({card})")
+    del xs, xd, got, want, dense_args
 
     # phase 4: the slice through the port's entry points
     graph = log_mel_frontend(RATE, 16000, 1024, 256, 128, center=False)
@@ -248,13 +299,13 @@ def main() -> int:
           f"plain path {med['plain']:.2f} ms = {audio_s / med['plain'] * 1e3:.0f} audio-s/s "
           f"(runs, ms: {json.dumps(times)})")
 
-    # per frame: window, rFFT, power, mel projection, floor and log
+    # per frame: window, rFFT, power, the mel projection over the
+    # filterbank's nonzeros, floor and log. Bytes: the signal, the window,
+    # the twiddles, the band table and weights in, the mel out
     n_fft, n_bins, n_mels = 1024, 513, 128
-    ms_flops = BATCH * 20 * (n_fft + rfft_flops(n_fft) + 3 * n_bins + 2 * n_bins * n_mels + 2 * n_mels)
-    ms_work = BATCH * 20 * (4 * n_fft * n_bins + 3 * n_bins + 2 * n_bins * n_mels + 2 * n_mels)
-    ms_bound, ms_by = bound_ms(
-        ms_flops, 4 * (BATCH * 5888 + 2 * n_fft * n_bins + n_bins * n_mels + BATCH * 20 * n_mels),
-    )
+    ms_flops = BATCH * 20 * (n_fft + rfft_flops(n_fft) + 3 * n_bins + 2 * fb_nnz + 2 * n_mels)
+    ms_bytes = 4 * (BATCH * 5888 + 2 * n_fft + 3 * n_mels + fb_nnz + BATCH * 20 * n_mels)
+    ms_bound, ms_by = bound_ms(ms_flops, ms_bytes)
     del x
 
     # phase 6: the time-stretch kernel against its plain version
@@ -349,10 +400,10 @@ def main() -> int:
               f"{med['pallas']:.3f} ms = {audio_s / med['pallas'] * 1e3:.0f} audio-s/s, matmul path "
               f"{med['matmul']:.3f} ms = {audio_s / med['matmul'] * 1e3:.0f} audio-s/s "
               f"(runs, ms: {json.dumps(times)})")
-    print(f"phase 8 kernels ({card}): melspec {k_ms:.4f} ms vs plain {p_ms:.4f} ms, bound "
-          f"{ms_bound:.4f} ms ({ms_by}: {ms_flops / 1e9:.3f} GFLOP with an rFFT; the kernel's dense DFT "
-          f"{ms_work / 1e9:.2f} GFLOP at {ms_work / k_ms / 1e9:.1f} TFLOP/s); timestretch {ts_ms:.4f} ms "
-          f"vs plain {tp_ms:.4f} ms, bound {ts_bound:.4f} ms ({ts_by})")
+    print(f"phase 8 kernels ({card}): melspec {k_ms:.4f} ms vs plain {p_ms:.4f} ms and cuFFT composition "
+          f"{c_ms:.4f} ms, bound {ms_bound:.4f} ms ({ms_by}: {ms_bytes / 1e6:.2f} MB, {ms_flops / 1e9:.3f} "
+          f"GFLOP with an rFFT and the filterbank's nonzeros; {ms_bound / k_ms:.1%} of it); timestretch "
+          f"{ts_ms:.4f} ms vs plain {tp_ms:.4f} ms, bound {ts_bound:.4f} ms ({ts_by})")
 
     # phase 9: the griffinlim kernel against its plain version at full width
     spec = stft(x, n_fft, 256)
@@ -361,13 +412,40 @@ def main() -> int:
     check(tuple(mag.shape) == (PVOC_BATCH, 626, n_bins), f"magnitude shape {tuple(mag.shape)}")
     zeros = torch.zeros_like(mag)
     gd = griffinlim.designs(n_fft, 256, "hann", n_frames, dev)
+    gl_path = griffinlim.kernel_path(n_fft, 256)
+    check(gl_path == "fft", f"griffinlim takes the {gl_path} path at n_fft 1024, hop 256")
     got = griffinlim.griffin_lim_iteration(mag, zeros, mag, zeros, mag, 0.0)
-    want = griffinlim.griffin_lim_iteration_reference(mag, zeros, mag, zeros, mag, 0.0, *gd)
+    want = griffinlim.griffin_lim_iteration_reference(mag, zeros, mag, zeros, mag, 0.0, gd)
     torch.cuda.synchronize()
     gl_err = max((g - w).abs().max().item() for g, w in zip(got, want))
     gl_rel = gl_err / max(w.abs().max().item() for w in want)
     check(gl_rel <= GL_TOL, f"griffinlim projection vs plain: rel {gl_rel} > {GL_TOL}")
-    del got, want
+
+    def gl_cufft(momentum):  # the same function from cuFFT and plain torch: a yardstick the port never calls
+        s_re, s_im = griffinlim.replace_magnitude(mag, zeros, mag, zeros, mag, momentum)
+        frames = torch.fft.irfft(torch.complex(s_re, s_im), n_fft) * gd.window
+        spec = torch.fft.rfft(frame(overlap_add(frames, 256) * gd.inv.reshape(-1), n_fft, 256) * gd.window)
+        return spec.real, spec.imag
+
+    peak = max(w.abs().max().item() for w in want)
+    cufft_rel = max((g - w).abs().max().item() for g, w in zip(gl_cufft(0.0), want)) / peak
+    kc_rel = max((g - w).abs().max().item() for g, w in zip(got, gl_cufft(0.0))) / peak
+    # two launches on the same planes, from a random phase with momentum: bitwise equal
+    ph = torch.from_numpy(np.random.default_rng(SEED).uniform(-np.pi, np.pi, mag.shape).astype(np.float32)).to(dev)
+    r_re, r_im = (mag * torch.cos(ph)).contiguous(), (mag * torch.sin(ph)).contiguous()
+    runs = [griffinlim.griffin_lim_iteration(r_re, r_im, mag, zeros, mag, 0.99) for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), "two griffinlim launches on the same input differ")
+    # the dense path at an odd n_fft (501, hop 167) on 8 rows
+    check(griffinlim.kernel_path(501, 167) == "dense", "griffinlim at 501/167 does not take the dense path")
+    md = stft(x[:8], 501, 167).abs().contiguous()
+    zd = torch.zeros_like(md)
+    gdd = griffinlim.designs(501, 167, "hann", md.shape[1], dev)
+    dense_want = griffinlim.griffin_lim_iteration_reference(md, zd, md, zd, md, 0.0, gdd)
+    dense_rel = max((g - w).abs().max().item() for g, w in zip(
+        griffinlim.griffin_lim_iteration(md, zd, md, zd, md, 0.0, 501, 167), dense_want)) / max(
+        w.abs().max().item() for w in dense_want)
+    check(dense_rel <= GL_TOL, f"dense griffinlim projection vs plain: rel {dense_rel} > {GL_TOL}")
+    del got, want, runs, r_re, r_im, ph, md, zd, gdd, dense_want
 
     def specconv(y):
         m2 = stft(y, n_fft, 256).abs()[..., :n_frames, :]
@@ -380,24 +458,25 @@ def main() -> int:
     oracle = ((y - x)[:, 2048:-2048].abs().max() / x.abs().max()).item()
     check(oracle < GL_ORACLE_TOL, f"griffinlim true-phase oracle {oracle} >= {GL_ORACLE_TOL}")
     del spec, y
-    gk_ms = cuda_ms(lambda: griffinlim.griffin_lim_iteration(mag, zeros, mag, zeros, mag, 0.99), 10)
-    gp_ms = cuda_ms(lambda: griffinlim.griffin_lim_iteration_reference(mag, zeros, mag, zeros, mag, 0.99, *gd), 10)
+    gk_ms = device_ms(lambda: griffinlim.griffin_lim_iteration(mag, zeros, mag, zeros, mag, 0.99), 10)
+    gp_ms = device_ms(lambda: griffinlim.griffin_lim_iteration_reference(mag, zeros, mag, zeros, mag, 0.99, gd), 10)
+    gc_ms = device_ms(lambda: gl_cufft(0.99), 10)
     # one iteration, per frame: the prologue (15 per bin: momentum, |a|, the
     # guard, two divides and two products), the inverse rFFT, the synthesis
     # window and overlap-add, the analysis window and the forward rFFT; per
-    # row sample, the WOLA inverse. Bytes: 5 state planes in, 2 out, the four
-    # banks and the row inverse
+    # row sample, the WOLA inverse. Bytes: 5 state planes in, 2 out, the row
+    # inverse, the window and the twiddles
     n_rows = n_frames + n_fft // 256 - 1
     gl_flops = PVOC_BATCH * (n_frames * (2 * rfft_flops(n_fft) + 15 * n_bins + 3 * n_fft) + n_rows * 256)
-    gl_bytes = 4 * (7 * PVOC_BATCH * n_frames * n_bins + 4 * n_fft * n_bins + n_rows * 256)
-    gl_work = PVOC_BATCH * n_frames * 8 * n_fft * n_bins  # the kernel's dense DFTs
+    gl_bytes = 4 * (7 * PVOC_BATCH * n_frames * n_bins + n_rows * 256 + 2 * n_fft)
     gl_bound, gl_by = bound_ms(gl_flops, gl_bytes)
-    print(f"phase 9 griffinlim vs plain at {list(mag.shape)}: one projection max|d| {gl_err:.3e}, rel "
-          f"{gl_rel:.3e} (tol {GL_TOL}); 8 iterations spectral convergence kernel {sc_k:.5f} vs plain "
-          f"{sc_p:.5f} (tol {GL_SC_TOL}); true-phase oracle {oracle:.3e} (tol {GL_ORACLE_TOL}); kernel "
-          f"{gk_ms:.4f} ms per iteration, plain {gp_ms:.4f} ms, bound {gl_bound:.4f} ms ({gl_by}: "
-          f"{gl_bytes / 1e6:.1f} MB, {gl_flops / 1e9:.3f} GFLOP with FFTs; the kernel's dense DFTs are "
-          f"{gl_work / 1e9:.1f} GFLOP, run at {gl_work / gk_ms / 1e9:.1f} TFLOP/s) ({card})")
+    print(f"phase 9 griffinlim vs plain at {list(mag.shape)}, path {gl_path}: one projection max|d| "
+          f"{gl_err:.3e}, rel {gl_rel:.3e} (tol {GL_TOL}); dense path at 501/167 on 8 rows: rel "
+          f"{dense_rel:.3e}; two launches bitwise equal; 8 iterations spectral convergence kernel {sc_k:.5f} "
+          f"vs plain {sc_p:.5f} (tol {GL_SC_TOL}); true-phase oracle {oracle:.3e} (tol {GL_ORACLE_TOL}); "
+          f"kernel {gk_ms:.4f} ms per iteration, plain {gp_ms:.4f} ms, cuFFT composition {gc_ms:.4f} ms "
+          f"(rel {cufft_rel:.3e}; kernel vs cuFFT {kc_rel:.3e}), bound {gl_bound:.4f} ms ({gl_by}: "
+          f"{gl_bytes / 1e6:.1f} MB, {gl_flops / 1e9:.3f} GFLOP with FFTs; {gl_bound / gk_ms:.1%} of it) ({card})")
 
     # phase 10: the Griffin-Lim slice through the port's entry points, counted from 0
     fb = mel_filterbank(n_bins, 128, PVOC_RATE)
@@ -564,7 +643,7 @@ def main() -> int:
             "name": "melspec", "route": "cuda", "source": "audioflow_torch/csrc/melspec.cu",
             "replaces": "audioflow_tpu/ops/pallas/melspec.py:137", "launches": launches,
             "max_abs_err": kernel_err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": ms_bound, "bound_by": ms_by, "library_ms": None,
+            "bound_ms": ms_bound, "bound_by": ms_by, "library_ms": None, "path": ms_path, "cufft_ms": c_ms,
         },
         {
             "name": "timestretch", "route": "cuda", "source": "audioflow_torch/csrc/timestretch.cu",
@@ -576,7 +655,7 @@ def main() -> int:
             "name": "griffinlim", "route": "cuda", "source": "audioflow_torch/csrc/griffinlim.cu",
             "replaces": "audioflow_tpu/ops/pallas/griffinlim.py:216", "launches": gl_launches,
             "max_abs_err": gl_err, "ms": gk_ms, "plain_ms": gp_ms,
-            "bound_ms": gl_bound, "bound_by": gl_by, "library_ms": None,
+            "bound_ms": gl_bound, "bound_by": gl_by, "library_ms": None, "path": gl_path, "cufft_ms": gc_ms,
         },
         {
             "name": "viterbi", "route": "cuda", "source": "audioflow_torch/csrc/viterbi.cu",

@@ -15,7 +15,7 @@ from audioflow_torch.models import log_mel_frontend
 from audioflow_torch.ops import griffin_lim, mel_to_audio, pitch_shift, pyin, stft, time_stretch
 from audioflow_torch.ops.kernels import griffinlim, melspec, timestretch, viterbi
 from audioflow_torch.ops.mel import mel_filterbank
-from audioflow_torch.ops.stft import dft_banks
+from audioflow_torch.ops.stft import dft_banks, padded_window
 
 pytestmark = pytest.mark.cuda
 
@@ -27,47 +27,56 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(shape, n_fft, n_mels, window, device):
+def _inputs(shape, n_fft, n_mels, window, device, win_length=None):
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
-    cosb, sinb = dft_banks(n_fft, window, None, device)
+    cosb, sinb = dft_banks(n_fft, window, win_length, device)
+    w = torch.from_numpy(padded_window(n_fft, window, win_length).astype(np.float32)).to(device)
     fb = torch.from_numpy(mel_filterbank(n_fft // 2 + 1, n_mels, 16000)).to(device)
-    return x, cosb, sinb, fb
+    return x, cosb, sinb, w, fb
 
 
-# the stream step's shape; an n_fft that is not a multiple of 4 with an
-# uneven hop; a transform whose bins fill two full passes; one frame
+# the stream step's shape (FFT path); an n_fft that is not a multiple of 4
+# with an uneven hop (dense); Whisper's and Kaldi's 400 (dense); a 2048
+# transform (FFT); one frame of the povey window; a zero-padded window
 @pytest.mark.parametrize(
-    "shape,n_fft,hop,n_mels,window,log",
+    "shape,n_fft,hop,n_mels,window,log,win_length,path",
     [
-        ((64, 5888), 1024, 256, 128, "hann", "ln"),
-        ((3, 4001), 502, 100, 40, "hamming", None),
-        ((2, 9000), 2048, 512, 64, "hann", "log10"),
-        ((5, 1024), 1024, 256, 128, "povey", "ln"),
+        ((64, 5888), 1024, 256, 128, "hann", "ln", None, "fft"),
+        ((3, 4001), 502, 100, 40, "hamming", None, None, "dense"),
+        ((3, 4000), 400, 160, 80, "hann", "ln", None, "dense"),
+        ((2, 9000), 2048, 512, 64, "hann", "log10", None, "fft"),
+        ((5, 1024), 1024, 256, 128, "povey", "ln", None, "fft"),
+        ((3, 6000), 512, 160, 64, "hann", "db", 400, "fft"),
     ],
 )
-def test_kernel_matches_plain(cuda_device, shape, n_fft, hop, n_mels, window, log):
-    x, cosb, sinb, fb = _inputs(shape, n_fft, n_mels, window, cuda_device)
+def test_kernel_matches_plain(cuda_device, shape, n_fft, hop, n_mels, window, log, win_length, path):
+    x, cosb, sinb, w, fb = _inputs(shape, n_fft, n_mels, window, cuda_device, win_length)
+    assert melspec.kernel_path(n_fft) == path
     before = melspec.COUNT.launches
-    got = melspec.mel_spectrogram(x, cosb, sinb, fb, hop, log=log)
+    got = melspec.mel_spectrogram(x, cosb, sinb, w, fb, hop, log=log)
     torch.cuda.synchronize()
     assert melspec.COUNT.launches == before + 1
     want = melspec.mel_spectrogram_reference(x, cosb, sinb, fb, hop, log=log)
     assert got.shape == want.shape
     if log is None:
         got, want = got.log(), want.log()
+    if log == "db":
+        got, want = got / 10.0, want / 10.0
     # both fp32 with TF32 off; the sums are taken in another order
     assert (got - want).abs().max().item() <= 1e-4
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
-    x, cosb, sinb, fb = _inputs((4, 5888), 1024, 128, "hann", cuda_device)
+    x, cosb, sinb, w, fb = _inputs((4, 5888), 1024, 128, "hann", cuda_device)
     with pytest.raises(ValueError):
-        melspec.mel_spectrogram(x[:, ::2], cosb, sinb, fb, 256)  # not contiguous
+        melspec.mel_spectrogram(x[:, ::2], cosb, sinb, w, fb, 256)  # not contiguous
     with pytest.raises(ValueError):
-        melspec.mel_spectrogram(x.double(), cosb.double(), sinb.double(), fb.double(), 256)
+        melspec.mel_spectrogram(x.double(), cosb.double(), sinb.double(), w.double(), fb.double(), 256)
     with pytest.raises(ValueError):
-        melspec.mel_spectrogram(x, cosb, sinb, fb.cpu(), 256)
+        melspec.mel_spectrogram(x, cosb, sinb, w, fb.cpu(), 256)
+    with pytest.raises(ValueError):
+        melspec.mel_spectrogram(x, cosb, sinb, w.cpu(), fb, 256)
 
 
 def test_slice_on_card_matches_cpu(cuda_device):
@@ -186,14 +195,18 @@ def _specconv(y, mag, n_fft=1024, hop=256):
     return (torch.linalg.norm(m2 - mag) / torch.linalg.norm(mag)).item()
 
 
-# the main path's n_fft and hop; k = 2; an odd n_fft; a hop of 16 (64
-# segments, taken in groups); one frame
+# the main path's n_fft and hop (FFT path, and more frames than one tile);
+# k = 2 (FFT); a 2048 transform (FFT); the largest k the FFT path takes;
+# an odd n_fft (dense); a hop of 16 (dense: 64 segments, taken in groups);
+# one frame (FFT)
 @pytest.mark.parametrize(
-    "shape,n_fft,hop",
-    [((3, 16000), 1024, 256), ((2, 9001), 512, 256), ((2, 6000), 501, 167), ((1, 4096), 1024, 16),
-     ((2, 600), 1024, 256)],
+    "shape,n_fft,hop,path",
+    [((3, 40000), 1024, 256, "fft"), ((2, 9001), 512, 256, "fft"), ((2, 20000), 2048, 512, "fft"),
+     ((2, 9000), 1024, 64, "fft"), ((2, 6000), 501, 167, "dense"), ((1, 4096), 1024, 16, "dense"),
+     ((2, 600), 1024, 256, "fft")],
 )
-def test_griffinlim_projection_matches_plain(cuda_device, shape, n_fft, hop):
+def test_griffinlim_projection_matches_plain(cuda_device, shape, n_fft, hop, path):
+    assert griffinlim.kernel_path(n_fft, hop) == path
     mag = _magnitude(shape, n_fft, hop, cuda_device)
     zeros = torch.zeros_like(mag)
     before = griffinlim.COUNT.launches
@@ -201,12 +214,25 @@ def test_griffinlim_projection_matches_plain(cuda_device, shape, n_fft, hop):
     torch.cuda.synchronize()
     assert griffinlim.COUNT.launches == before + 1
     d = griffinlim.designs(n_fft, hop, "hann", mag.shape[1], cuda_device)
-    want = griffinlim.griffin_lim_iteration_reference(mag, zeros, mag, zeros, mag, 0.0, *d)
+    want = griffinlim.griffin_lim_iteration_reference(mag, zeros, mag, zeros, mag, 0.0, d)
     # one projection is linear in the magnitude: fp32 sums in another order
     peak = torch.maximum(want[0].abs().max(), want[1].abs().max())
     for g, w in zip(got, want):
         assert g.shape == w.shape == mag.shape
         assert ((g - w).abs().max() / peak).item() <= 1e-5
+
+
+@pytest.mark.parametrize("n_fft,hop", [(1024, 256), (501, 167)])
+def test_griffinlim_is_deterministic(cuda_device, n_fft, hop):
+    """Two launches on the same planes are bitwise equal: the overlap-add
+    is summed in one fixed order, without atomics, on both paths."""
+    mag = _magnitude((3, 40000), n_fft, hop, cuda_device)
+    rng = np.random.default_rng(3)
+    phase = torch.from_numpy(rng.uniform(-np.pi, np.pi, mag.shape).astype(np.float32)).to(cuda_device)
+    r_re, r_im = (mag * torch.cos(phase)).contiguous(), (mag * torch.sin(phase)).contiguous()
+    a = griffinlim.griffin_lim_iteration(r_re, r_im, mag, torch.zeros_like(mag), mag, 0.99, n_fft, hop)
+    b = griffinlim.griffin_lim_iteration(r_re, r_im, mag, torch.zeros_like(mag), mag, 0.99, n_fft, hop)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_griffinlim_iterations_match_plain(cuda_device):

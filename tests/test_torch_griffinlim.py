@@ -80,7 +80,9 @@ def test_host_designs_bit_identical():
     n_fft, hop, window, f = 1024, 256, "hann", 94
     w = jops.get_window(window, n_fft, periodic=True).astype(np.float64)
     ci, si = jstft._idft_banks(n_fft)
-    bk, got_inv = tgl.designs(n_fft, hop, window, f, "cpu")
+    d = tgl.designs(n_fft, hop, window, f, "cpu")
+    bk, got_inv = d.banks, d.inv
+    assert np.array_equal(d.window.numpy(), w.astype(np.float32))
     assert np.array_equal(bk.icos.numpy(), (np.asarray(ci, np.float64) * w[None, :]).astype(np.float32))
     assert np.array_equal(bk.isin.numpy(), (np.asarray(si, np.float64) * w[None, :]).astype(np.float32))
     cosb, sinb = jstft._dft_banks(n_fft, window, None)
