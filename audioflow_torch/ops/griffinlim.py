@@ -4,8 +4,9 @@ Mirrors ``audioflow_tpu/ops/griffinlim.py``: fast Griffin-Lim, the momentum
 update of librosa.griffinlim (Perraudin et al., "A fast Griffin-Lim
 algorithm", WASPAA 2013). Two paths compute it:
 
-* ``"matmul"`` (and ``"fft"``, the same here): each iteration is one
-  ``istft`` -> ``stft`` round trip in plain torch, then the momentum and
+* ``"matmul"`` and ``"fft"``: each iteration is one ``istft`` -> ``stft``
+  round trip in plain torch (the transforms as products with the DFT banks,
+  or as ``torch.fft``, cuFFT on the card), then the momentum and
   magnitude-replacement step;
 * ``"pallas"`` (the JAX package's name for its fused kernel): the
   hand-written CUDA kernel of :mod:`audioflow_torch.ops.kernels.griffinlim`,
@@ -48,8 +49,8 @@ def griffin_lim(
     see :func:`audioflow_torch.utils.as_tensor`). ``momentum`` is in [0, 1);
     0 is classic Griffin-Lim. ``length`` is the output sample count (the
     istft's natural length by default). ``impl`` is "auto", "pallas" (force
-    the fused kernel; its plain version on the CPU), "matmul" or "fft" (both
-    the matmul path). ``precision`` is accepted for parity: the port
+    the fused kernel; its plain version on the CPU), "matmul" (the round
+    trip against the DFT banks) or "fft" (through ``torch.fft``). ``precision`` is accepted for parity: the port
     computes in fp32. ``init_phase`` (the shape of ``mag``) seeds the phase;
     zeros by default. Returns ``[..., T]``.
     """

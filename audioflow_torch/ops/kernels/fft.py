@@ -32,14 +32,15 @@ def is_fft_size(n_fft: int) -> bool:
     return MIN_FFT <= n_fft <= MAX_FFT and n_fft & (n_fft - 1) == 0
 
 
-def twiddles(n_fft: int) -> np.ndarray:
-    """``e^{-2πi t/n_fft}`` for ``t < n_fft // 2`` as float32 ``[n_fft // 2,
-    2]`` (cos, -sin), designed in float64. Cached: callers must not write
-    to it."""
-    if n_fft not in _TWIDDLES:
+def twiddles(n_fft: int, dtype=np.float32) -> np.ndarray:
+    """``e^{-2πi t/n_fft}`` for ``t < n_fft // 2`` as ``[n_fft // 2, 2]``
+    (cos, -sin), designed in float64 and rounded to ``dtype`` (float32, or
+    float64 for the fp64 transform). Cached: callers must not write to it."""
+    key = (n_fft, np.dtype(dtype).name)
+    if key not in _TWIDDLES:
         ang = 2.0 * np.pi * np.arange(n_fft // 2, dtype=np.float64) / n_fft
-        _TWIDDLES[n_fft] = np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
-    return _TWIDDLES[n_fft]
+        _TWIDDLES[key] = np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(dtype)
+    return _TWIDDLES[key]
 
 
 def _table(tw: torch.Tensor) -> torch.Tensor:

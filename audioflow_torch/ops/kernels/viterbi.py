@@ -8,8 +8,11 @@ voiced/unvoiced merge of ``pitch.py:498-505`` with its strict compares (a tie
 between the tracks keeps the voiced source). It records per state the
 winning offset, centred (``off - half``, exact in int8 up to 255 taps), and
 a flag for an unvoiced source. The Pallas kernel's grid over frames and its
-lane rotations are artefacts of VMEM; the CUDA kernel is one block per batch
-row, looping over every frame inside one launch (see the source's note).
+lane rotations are artefacts of VMEM; the CUDA kernel runs each batch row
+as a thread-block cluster whose blocks split the bins and trade their edge
+messages through distributed shared memory every frame, looping over every
+frame inside one launch (see the source's note). :func:`kernel_path` gives
+the cluster size the kernel takes for a shape.
 
 :func:`pyin_viterbi_forward` takes tensors on the CPU to the plain version
 :func:`pyin_viterbi_forward_reference`, launches the kernel for CUDA
@@ -34,6 +37,12 @@ from .melspec import LaunchCount
 _MAX_SMEM = 232_448
 # the int8 range of centred offsets: half <= 127
 _MAX_KERNEL_TAPS = 255
+# mirrors of csrc/viterbi.cu's shape rule, so that supported() and
+# kernel_path() need no build; the wrapper checks them against the library
+_MAX_CLUSTER = 8  # the portable cluster size
+_TARGET_SMS = 132  # the H100's SMs
+_PAD = 2  # message slabs padded to a multiple of the bins a thread owns
+_TAP_PAD = 4  # taps padded to a multiple of the bins a thread owns times the lanes that split them
 
 COUNT = LaunchCount()
 
@@ -45,8 +54,10 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
     )
     lib.viterbi_forward_launch.restype = ctypes.c_int
-    lib.viterbi_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.viterbi_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.viterbi_smem_bytes.restype = ctypes.c_longlong
+    lib.viterbi_cluster.argtypes = [ctypes.c_int] * 3
+    lib.viterbi_cluster.restype = ctypes.c_int
     return lib
 
 
@@ -55,23 +66,45 @@ def build() -> None:
     _lib()
 
 
-def smem_bytes(n_bins: int, kernel_len: int) -> int:
-    """Dynamic shared memory of one block: both tracks' messages, double
-    buffered, with ``half`` margins each side, and the log-kernel."""
-    return 4 * (4 * (n_bins + kernel_len - 1) + kernel_len)
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def smem_bytes(n_bins: int, kernel_len: int, cluster: int = 1) -> int:
+    """Dynamic shared memory of one block when a row's ``n_bins`` are split
+    over ``cluster`` blocks: both tracks' messages of its bins, double
+    buffered, with ``half`` margins each side, and the log-kernel, padded for
+    the sliding windows."""
+    nb = -(-n_bins // cluster)
+    slab = _round_up(nb, _PAD) + _round_up(kernel_len, _TAP_PAD) + _PAD
+    return 4 * (_round_up(kernel_len, _TAP_PAD) + 4 * slab)
+
+
+def kernel_path(batch: int, n_bins: int, kernel_len: int) -> int:
+    """The cluster size C the kernel takes: blocks per batch row, chosen by
+    shape so that ``batch x C`` blocks fill the card's 132 SMs, at most 8,
+    grown until a block's messages fit in shared memory, then cut to the
+    blocks that own bins; 0 where none fits."""
+    if batch < 1 or n_bins < 1 or kernel_len < 1:
+        return 0
+    for c in range(min(_MAX_CLUSTER, max(1, _TARGET_SMS // batch)), _MAX_CLUSTER + 1):
+        if smem_bytes(n_bins, kernel_len, c) <= _MAX_SMEM:
+            return -(-n_bins // -(-n_bins // c))
+    return 0
 
 
 def supported(n_bins: int, kernel_len: int) -> bool:
-    """True when the kernel takes this band: an odd ``kernel_len`` up to 255
-    taps (centred offsets fit int8), ``n_bins >= 1``, and a block's messages
-    in shared memory (up to about 14,000 bins). The JAX predicate asks for
-    the first two; the bins it takes in practice (a few hundred to a few
-    thousand) all fit."""
+    """True when the kernel takes this band at any batch: an odd
+    ``kernel_len`` up to 255 taps (centred offsets fit int8), ``n_bins >= 1``,
+    and a block's messages in shared memory with the row split over 8
+    blocks (up to about 110,000 bins). The JAX predicate asks for the first
+    two; the bins it takes in practice (a few hundred to a few thousand) all
+    fit."""
     return (
         kernel_len % 2 == 1
         and 1 <= kernel_len <= _MAX_KERNEL_TAPS
         and n_bins >= 1
-        and smem_bytes(n_bins, kernel_len) <= _MAX_SMEM
+        and smem_bytes(n_bins, kernel_len, _MAX_CLUSTER) <= _MAX_SMEM
     )
 
 
@@ -166,9 +199,12 @@ def _launch(ov, ou, lk, log_init, log_stay, log_switch):
     if f * 2 * b * n >= 2**31:
         raise ValueError(f"{f} frames x {b} rows x {n} bins is too large for one call")
     lib = _lib()
-    smem = lib.viterbi_smem_bytes(n, k)
-    if smem != smem_bytes(n, k):
-        raise RuntimeError(f"smem_bytes() is out of date with viterbi.cu: {smem_bytes(n, k)} vs {smem}")
+    c = kernel_path(b, n, k)
+    got = (lib.viterbi_cluster(b, n, k), lib.viterbi_smem_bytes(b, n, k))
+    if got != (c, smem_bytes(n, k, c)):
+        raise RuntimeError(
+            f"kernel_path()/smem_bytes() are out of date with viterbi.cu: {(c, smem_bytes(n, k, c))} vs {got}"
+        )
     ov, ou = ov.contiguous(), ou.contiguous()
     lk = lk.to(ov.device)
     dv = torch.empty((b, n), dtype=torch.float32, device=ov.device)

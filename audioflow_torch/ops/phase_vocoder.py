@@ -1,10 +1,13 @@
 """Phase-vocoder time-stretch and pitch-shift (BASELINE config 4).
 
-Mirrors ``audioflow_tpu/ops/phase_vocoder.py``. Two paths compute the
+Mirrors ``audioflow_tpu/ops/phase_vocoder.py``. Three paths compute the
 stretch:
 
 * ``"matmul"``: STFT, the angle-form phase vocoder (per-frame increments,
-  one ``cumsum``), ISTFT, all plain torch;
+  one ``cumsum``), ISTFT, all plain torch, the transforms as products with
+  the DFT banks;
+* ``"fft"``: the same with the transforms as ``torch.fft.rfft``/``irfft``
+  (cuFFT on the card);
 * ``"pallas"`` (the JAX package's name for its fused kernel): the
   hand-written CUDA kernel of :mod:`audioflow_torch.ops.kernels.timestretch`,
   which uses the trig-free phasor form (see :func:`increment_phasors`).
@@ -100,7 +103,8 @@ def time_stretch(
     ``x [..., T]`` is a tensor, or a numpy array that goes to ``device``
     ("cuda" unless given; see :func:`audioflow_torch.utils.as_tensor`).
     ``impl`` is "auto", "pallas" (force the fused kernel; its plain version
-    on the CPU), "matmul" or "fft" (both the matmul path). ``precision`` is
+    on the CPU), "matmul" (STFT and ISTFT against the DFT banks) or "fft"
+    (the same through ``torch.fft``). ``precision`` is
     accepted for parity: the port computes in fp32.
     """
     if rate <= 0:

@@ -1,12 +1,14 @@
-"""STFT, ISTFT and the power/magnitude spectrogram as matmuls against
-host-designed DFT banks.
+"""STFT, ISTFT and the power/magnitude spectrogram: ``torch.fft`` for
+``impl="fft"``, matmuls against host-designed DFT banks for every other name.
 
 The windowed real-DFT banks (``_dft_banks``) and the inverse banks
 (``_idft_banks``) are float64 designs copied bit for bit from
 ``audioflow_tpu/ops/stft.py``. Folding the analysis window into the banks
 makes the spectrogram ``frames @ cos`` and ``frames @ sin``: no window
 multiply. The inverse is ``Re @ ci + Im @ si``, then the synthesis window,
-overlap-add and the window-square (WOLA) normalisation.
+overlap-add and the window-square (WOLA) normalisation. ``impl="fft"`` is
+``torch.fft.rfft`` of the windowed frames and ``torch.fft.irfft``, as the
+JAX package's ``jnp.fft`` form: cuFFT on the card, torch's own FFT on the CPU.
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ from .windows import get_window
 # windowed-DFT bank variants, ~n_fft*(n_fft//2+1)*4 B each (8 MB at 2048)
 _BANK_CACHE = BoundedCache(maxsize=64)
 
-# The JAX package's impl variants choose between lane-padding and compile-time
-# trade-offs of the TPU's matrix unit. They compute the same function; the
-# port accepts every name and runs the one two-matmul form.
+# "fft" is an FFT (torch.fft: cuFFT on the card), as in the JAX package.
+# The other names are the JAX package's lane-padding and compile-time
+# trade-offs of the TPU's matrix unit; they compute the same function, and
+# the port runs every one of them as the one two-matmul form against the banks.
 IMPLS = ("matmul", "folded", "fourstep", "onedot", "radix2", "fft")
 
 
@@ -97,11 +100,15 @@ def spectrogram(
 ) -> torch.Tensor:
     """Power (or magnitude) spectrogram ``[..., frames, n_fft//2+1]``.
 
-    Every ``impl`` name of the JAX package is accepted and runs the same
-    two-matmul form (see :data:`IMPLS`).
+    ``impl="fft"`` goes through :func:`stft` (``torch.fft.rfft``), then
+    takes the power or the magnitude, as the JAX package does; every other
+    name runs the two-matmul form (see :data:`IMPLS`).
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown spectrogram impl {impl!r}; known: {', '.join(IMPLS)}")
+    if impl == "fft":
+        spec = stft(x, n_fft, hop, win_length, window, center, pad_mode, dtype)
+        return power_fn(spec) if power else magnitude(spec)
     if center:
         x = pad_center(x, n_fft, pad_mode)
     frames = frame(x.to(dtype), n_fft, hop)
@@ -127,14 +134,18 @@ def stft(
     """Short-time Fourier transform of ``x [..., T]``: a complex64
     spectrogram ``[..., n_frames, n_fft // 2 + 1]`` (frame axis first).
 
-    Every ``impl`` name of the JAX package runs the same two-matmul form
-    (see :data:`IMPLS`); ``precision`` is accepted for parity (fp32 always).
+    ``impl="fft"`` is ``torch.fft.rfft`` of the frames times the periodic
+    window; every other name runs the two-matmul form (see :data:`IMPLS`).
+    ``precision`` is accepted for parity (fp32 always).
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown stft impl {impl!r}; known: {', '.join(IMPLS)}")
     if center:
         x = pad_center(x, n_fft, pad_mode)
     frames = frame(x.to(dtype), n_fft, hop)
+    if impl == "fft":
+        w = on_device(padded_window(n_fft, window, win_length), x.device).to(dtype)
+        return torch.fft.rfft(frames * w, n=n_fft)
     cosb, sinb = dft_banks(n_fft, window, win_length, x.device)
     return torch.complex(mm(frames, cosb.to(dtype), precision), mm(frames, sinb.to(dtype), precision))
 
@@ -145,6 +156,9 @@ def magnitude(spec: torch.Tensor) -> torch.Tensor:
 
 def power(spec: torch.Tensor) -> torch.Tensor:
     return spec.real**2 + spec.imag**2
+
+
+power_fn = power  # spectrogram's `power` argument shadows the name
 
 
 def _idft_banks(n_fft: int):
@@ -201,10 +215,12 @@ def frames_from_spec(
     precision: str | None = None,
 ) -> torch.Tensor:
     """Inverse real DFT of spectral frames ``[..., F, n_bins]`` ->
-    ``[..., F, n_fft]``. ``impl`` "fft" and "matmul" both run the two-matmul
-    form."""
+    ``[..., F, n_fft]``: ``impl="fft"`` is ``torch.fft.irfft``, ``"matmul"``
+    the two-matmul form against the inverse banks."""
     if impl not in ("fft", "matmul"):
         raise ValueError(f"unknown istft impl {impl!r}; known: fft, matmul")
+    if impl == "fft":
+        return torch.fft.irfft(spec, n=n_fft).to(dtype)
     ci, si = (on_device(b, spec.device).to(dtype) for b in _idft_banks(n_fft))
     return mm(spec.real.to(dtype), ci, precision) + mm(spec.imag.to(dtype), si, precision)
 

@@ -2,7 +2,7 @@
 
     python -m audioflow_torch.profiling [logmel] [pvoc] [pitch] [griffinlim] [pyin]
 
-Each path runs in two variants at the JAX benchmark's sizes
+Each path runs in two or three variants at the JAX benchmark's sizes
 (``audioflow_tpu/bench.py``, ``BENCHMARKS.md``): through the hand-written
 kernel and through plain torch. For each variant it prints one JSON line:
 the untraced run's time (CUDA events, after a warm-up run), the traced
@@ -15,8 +15,9 @@ and prints no result.
   over 512 x 10 s in 14,112-sample chunks, fused (melspec kernel) vs the
   Spectrogram + MelProject graph;
 * ``pvoc``: ``time_stretch(x, 1.25)`` on 64 x 10 s at 16 kHz,
-  ``impl="pallas"`` (timestretch kernel) vs ``"matmul"``;
-* ``pitch``: ``pitch_shift(x, 12.0)`` on the same batch, both impls;
+  ``impl="pallas"`` (timestretch kernel) vs ``"matmul"`` (the DFT banks)
+  and ``"fft"`` (the same path through cuFFT, variant ``cufft``);
+* ``pitch``: ``pitch_shift(x, 12.0)`` on the same batch, all three impls;
 * ``griffinlim``: ``griffin_lim(mag, n_iter=8)`` on the magnitude
   ``[64, 626, 513]`` of the same batch (n_fft 1024, hop 256), ``impl="auto"``
   (griffinlim kernel, one launch per iteration) vs ``"matmul"``;
@@ -73,7 +74,8 @@ def _paths(dev):
 
     def stretch(fn):
         x = torch.from_numpy(tone_batch(64, 10.0, 16000)).to(dev)
-        return 640.0, {"kernel": lambda: fn(x, "pallas"), "plain": lambda: fn(x, "matmul")}
+        return 640.0, {"kernel": lambda: fn(x, "pallas"), "plain": lambda: fn(x, "matmul"),
+                       "cufft": lambda: fn(x, "fft")}
 
     def griffinlim():
         x = torch.from_numpy(tone_batch(64, 10.0, 16000)).to(dev)

@@ -78,8 +78,8 @@ class BoundedCache:
 _DEVICE_CACHE = BoundedCache(maxsize=64)
 
 
-def on_device(array: np.ndarray, device: torch.device | str) -> torch.Tensor:
-    """``array`` as a float32 tensor on ``device``, uploaded once per device.
+def on_device(array: np.ndarray, device: torch.device | str, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``array`` as a ``dtype`` (float32) tensor on ``device``, uploaded once per device.
 
     For the cached host designs (plans, banks, filterbanks): a stream step
     would otherwise upload every bank again, and an upload from pageable host
@@ -87,9 +87,9 @@ def on_device(array: np.ndarray, device: torch.device | str) -> torch.Tensor:
     array's identity and hold the array itself, so an id cannot be reused
     while its entry lives. The tensors are shared and must not be written to.
     """
-    key = (id(array), str(torch.device(device)))
+    key = (id(array), str(torch.device(device)), dtype)
     hit = _DEVICE_CACHE.get(key)
     if hit is None or hit[0] is not array:
-        hit = (array, torch.tensor(np.asarray(array, np.float32), device=device))
+        hit = (array, torch.tensor(np.asarray(array), dtype=dtype, device=device))
         _DEVICE_CACHE[key] = hit
     return hit[1]

@@ -14,7 +14,7 @@ thresholds: 626 frames, 602 bins, a 139-tap band) on the JAX package's pYIN
 benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
 ``viterbi``). Phases, each printing its own line:
 
-1. device: the ``nvidia-smi`` name and power-limit line;
+1. device: the ``nvidia-smi`` name and power-limit line, and the SM clock;
 2. build: the four kernels built from ``audioflow_torch/csrc``, one nvcc
    per source started together, with the seconds taken and ptxas's
    registers and spills;
@@ -27,12 +27,16 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
    plain two-node graph (Spectrogram + MelProject);
 5. melspec timing: the slice, kernel path and plain path, in audio-seconds
    per second, timed with CUDA events;
-6. timestretch kernel vs plain: at the ``pvoc`` shape (rate 1.25), at the
-   ``pitch`` stretch's (rate 0.5, all 64 rows), and at rates 0.8, 2/3 and
-   2.0 on 8 rows, every sample;
+6. timestretch kernel vs plain: the path it took (checked to be ``fft``),
+   at the ``pvoc`` shape (rate 1.25), at the ``pitch`` stretch's (rate 0.5,
+   all 64 rows), and at rates 0.8, 2/3 and 2.0 on 8 rows, every sample; its
+   dense path at n_fft 960, hop 240 on 8 rows; two launches bitwise equal;
+   the ms per call of kernel, plain version and the cuFFT composition
+   (``time_stretch(impl="fft")``) by device time;
 7. time-stretch slice: the ``TimeStretch(1.25)`` and ``PitchShift(12.0)``
    graphs (one launch each), the kernel-vs-matmul gate of the JAX
-   package's validate, and the pitch-doubling probe;
+   package's validate (and the kernel's distance to the cuFFT composition
+   beside it), and the pitch-doubling probe;
 8. time-stretch timing: ``time_stretch`` and ``pitch_shift`` on the kernel
    path and the matmul path, and the kernel per call against its plain
    version and its bound;
@@ -50,10 +54,12 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
 11. Griffin-Lim timing: ``griffin_lim`` (8 iterations) and ``mel_to_audio``
     on the kernel path and the matmul path;
 12. viterbi kernel vs plain: the log observations ``[64, 626, 602]`` of the
-    pYIN batch computed once on the card, the kernel's ``dv``, ``du``,
-    ``off`` and ``pick`` exactly equal to the plain version's, and on a
-    tie-heavy synthetic case at 255 taps; ms per call of both against the
-    bound;
+    pYIN batch computed once on the card, the cluster size taken (checked
+    above 1), the kernel's ``dv``, ``du``, ``off`` and ``pick`` exactly
+    equal to the plain version's, and at batch 1 (clusters of 8), on a
+    narrow band whose margins span more than one neighbour, and on a
+    tie-heavy synthetic case at 255 taps; ms per call of both by device
+    time against the bound;
 13. pYIN slice, launches counted from 0: ``pyin(x)`` on numpy input (1
     launch), the plain scan (``viterbi_impl="xla"``) decoding the same f0
     and voicing, the ``Pyin`` node through ``Graph.compile()`` (1 launch),
@@ -62,8 +68,12 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
 14. pYIN timing: ``pyin`` through the kernel and through the plain scan,
     alternated, and ``yin`` on the same batch, in audio-seconds per second.
 
-Then one JSON line of per-kernel numbers (with ``path`` and ``cufft_ms``
-for the two kernels built on the shared-memory FFT), and last
+Every device time (phases 3, 6, 9, 12) is the median of three readings
+under torch.profiler, printed with the readings and the device events per
+call; a kernel's reading sums the mean time per launch of each kernel it
+runs once a call, which events the profiler drops or repeats do not bias. Then one JSON line of per-kernel numbers (with ``path`` and ``cufft_ms``
+for the three kernels built on the shared-memory FFT, ``cluster`` for
+viterbi), and last
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a card, or
 without the package beside it, it exits non-zero and prints no result.
 
@@ -124,6 +134,8 @@ PITCH_GATE = 5e-3
 # cores, and device memory
 FP32_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
+# readings per device time; their median is reported
+READINGS = 3
 
 
 def rfft_flops(n: int) -> float:
@@ -158,21 +170,47 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call of ``fn``: the self times of its
-    kernels under torch.profiler, summed. Unlike :func:`cuda_ms` it does not
-    count the card's idle gaps, so a kernel shorter than its wrapper's host
-    work is timed by the card, not by the host."""
+def device_ms(fn, iters: int, kernels: int | None = None) -> tuple[float, list[float], float]:
+    """Device milliseconds per call of ``fn`` by torch.profiler: the median
+    of :data:`READINGS` readings over ``iters`` calls each, the readings,
+    and the device events a call that the profiler recorded (their mean).
+    Unlike :func:`cuda_ms` it does not count the card's idle gaps, so a
+    kernel shorter than its wrapper's host work is timed by the card, not by
+    the host.
+
+    A reading is the self times of the calls' device events, summed and
+    divided by ``iters``. On the H100 the profiler drops some kernel events
+    of a session (up to a third of them) and, with a warm-up step in its
+    schedule, keeps one too many, so a sum per call reads low or high by as
+    much. Where ``kernels`` is given, ``fn`` launches that many distinct
+    kernels once a call each, and a reading is instead the sum of each
+    kernel's mean time per recorded launch, which no dropped or extra event
+    biases."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+    readings, events = [], []
+    for _ in range(READINGS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        if kernels is None:
+            ms = sum(e.self_device_time_total for e in dev) / 1e3 / iters
+        else:
+            check(len(dev) == kernels, f"{kernels} kernels a call, the profiler recorded {[e.key for e in dev]}")
+            ms = sum(e.self_device_time_total / e.count for e in dev) / 1e3
+        readings.append(round(ms, 4))
+        events.append(sum(e.count for e in dev) / iters)
+    return float(np.median(readings)), readings, float(np.mean(events))
+
+
+def timed(t: tuple[float, list[float], float]) -> str:
+    """A :func:`device_ms` result for a log line."""
+    return f"{t[0]:.4f} ms (readings {t[1]}, {t[2]:g} device events a call)"
 
 
 def main() -> int:
@@ -199,7 +237,11 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     card = smi.splitlines()[0]
-    print(f"phase 1 device: torch {torch.__version__} cuda {torch.version.cuda}")
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(f"phase 1 device: torch {torch.__version__} cuda {torch.version.cuda}; SM clock, max: {clocks}")
     print(smi)
 
     # phase 2: one nvcc per source, started together
@@ -249,13 +291,14 @@ def main() -> int:
     kc_err = (got - mel_cufft()).abs().max().item()
     # device time: at about 0.05 ms the kernel is shorter than its wrapper's
     # host work, so back-to-back CUDA events would time the host
-    k_ms = device_ms(lambda: melspec.mel_spectrogram(xs, cosb, sinb, win, fb, 256), 20)
-    p_ms = device_ms(lambda: melspec.mel_spectrogram_reference(xs, cosb, sinb, fb, 256), 20)
-    c_ms = device_ms(mel_cufft, 20)
+    k_t = device_ms(lambda: melspec.mel_spectrogram(xs, cosb, sinb, win, fb, 256), 20, kernels=1)
+    p_t = device_ms(lambda: melspec.mel_spectrogram_reference(xs, cosb, sinb, fb, 256), 20)
+    c_t = device_ms(mel_cufft, 20)
+    k_ms, p_ms, c_ms = k_t[0], p_t[0], c_t[0]
     fb_nnz = int((fb != 0).sum())
     print(f"phase 3 kernel vs plain at [{BATCH}, 5888] -> [{BATCH}, 20, 128], path {ms_path}: max|d| "
           f"{kernel_err:.3e} (tol {KERNEL_TOL}); dense path at n_fft 400, hop 160 on 8 rows: max|d| "
-          f"{dense_err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, cuFFT composition {c_ms:.4f} ms "
+          f"{dense_err:.3e}; kernel {timed(k_t)}, plain {timed(p_t)}, cuFFT composition {timed(c_t)} "
           f"(max|d| {cufft_err:.3e}; kernel vs cuFFT {kc_err:.3e}); filterbank {fb_nnz} nonzeros of "
           f"{fb.numel()} ({card})")
     del xs, xd, got, want, dense_args
@@ -323,6 +366,8 @@ def main() -> int:
         err = (got - want).abs().max().item()
         return err, err / want.abs().max().item()
 
+    ts_path = timestretch.kernel_path(n_fft, 256)
+    check(ts_path == "fft", f"timestretch takes the {ts_path} path at n_fft 1024, hop 256")
     ts_err, ts_rel = stretch_err(x, 1.25)
     check(ts_rel <= STRETCH_TOL, f"timestretch vs plain at rate 1.25: rel {ts_rel} > {STRETCH_TOL}")
     half_rel = stretch_err(x, 0.5)[1]  # the PitchShift(12.0) path's shape
@@ -331,25 +376,40 @@ def main() -> int:
     for rate in (0.8, 2.0 / 3.0, 0.5, 2.0):
         rels[f"{rate:.4f}"] = stretch_err(x[:8].contiguous(), rate)[1]
         check(rels[f"{rate:.4f}"] <= STRETCH_TOL, f"timestretch vs plain at rate {rate}: {rels}")
-    ts_ms = cuda_ms(lambda: timestretch.time_stretch_fused(x, 1.25), 10)
-    tp_ms = cuda_ms(lambda: timestretch.time_stretch_reference(x, 1.25), 3, warmup=1)
+    # the dense path at n_fft 960, hop 240 on 8 rows
+    check(timestretch.kernel_path(960, 240) == "dense", "timestretch at 960/240 does not take the dense path")
+    xd = x[:8].contiguous()
+    dense_want = timestretch.time_stretch_reference(xd, 1.25, 960, 240)
+    ts_dense_rel = ((timestretch.time_stretch_fused(xd, 1.25, 960, 240) - dense_want).abs().max()
+                    / dense_want.abs().max()).item()
+    check(ts_dense_rel <= STRETCH_TOL, f"dense timestretch vs plain: rel {ts_dense_rel} > {STRETCH_TOL}")
+    # two launches on the same input: bitwise equal
+    check(torch.equal(timestretch.time_stretch_fused(x, 1.25), timestretch.time_stretch_fused(x, 1.25)),
+          "two timestretch launches on the same input differ")
+    del xd, dense_want
+    # by device time, as melspec and griffinlim: the kernel, its plain
+    # version, and the cuFFT composition (time_stretch(impl="fft"), a
+    # yardstick the kernel path never calls)
+    ts_t = device_ms(lambda: timestretch.time_stretch_fused(x, 1.25), 10, kernels=3)  # three passes
+    tp_t = device_ms(lambda: timestretch.time_stretch_reference(x, 1.25), 2)
+    tc_t = device_ms(lambda: time_stretch(x, 1.25, impl="fft"), 10)
+    ts_ms, tp_ms, tc_ms = ts_t[0], tp_t[0], tc_t[0]
+    plan = timestretch.make_plan(t, 1.25, n_fft, 256)
     # per input frame: window, rFFT, magnitude and unit increment phasor
     # (14 per bin); per output frame: magnitude interpolation, phase
     # product, renormalisation and scaling (18 per bin), inverse rFFT,
     # synthesis window and overlap-add; per output sample, the WOLA divide
-    plan = timestretch.make_plan(t, 1.25, n_fft, 256)
     ts_flops = PVOC_BATCH * (
         plan.n_in * (n_fft + rfft_flops(n_fft) + 14 * n_bins)
         + plan.n_out * (18 * n_bins + rfft_flops(n_fft) + 2 * n_fft) + plan.out_len
     )
-    ts_work = PVOC_BATCH * 4 * n_fft * n_bins * (plan.n_in + plan.n_out)  # the kernel's dense DFTs
     ts_bound, ts_by = bound_ms(ts_flops, 4 * PVOC_BATCH * (t + plan.out_len))
-    print(f"phase 6 timestretch vs plain at [{PVOC_BATCH}, {t}] rate 1.25: max|d| {ts_err:.3e}, "
+    print(f"phase 6 timestretch vs plain at [{PVOC_BATCH}, {t}] rate 1.25, path {ts_path}: max|d| {ts_err:.3e}, "
           f"rel {ts_rel:.3e}; rate 0.5 on all rows: rel {half_rel:.3e}; on 8 rows at other rates: "
-          f"rel {json.dumps(rels)} (tol {STRETCH_TOL}); kernel {ts_ms:.4f} ms, plain {tp_ms:.4f} ms, "
-          f"bound {ts_bound:.4f} ms ({ts_by}: {ts_flops / 1e9:.3f} GFLOP with FFTs; the kernel's dense "
-          f"DFTs are {ts_work / 1e9:.1f} GFLOP, run at {ts_work / ts_ms / 1e9:.1f} TFLOP/s; "
-          f"{plan.n_in} input, {plan.n_out} output frames) ({card})")
+          f"rel {json.dumps(rels)} (tol {STRETCH_TOL}); dense path at 960/240 on 8 rows: rel {ts_dense_rel:.3e}; "
+          f"two launches bitwise equal; kernel {timed(ts_t)}, plain {timed(tp_t)}, cuFFT composition "
+          f"{timed(tc_t)}, bound {ts_bound:.4f} ms ({ts_by}: {ts_flops / 1e9:.3f} GFLOP with FFTs; "
+          f"{ts_bound / ts_ms:.1%} of it); {plan.n_in} input, {plan.n_out} output frames ({card})")
 
     # phase 7: the slice through the graph, counted from 0
     stretch = Graph((TimeStretch(1.25),), input_rate=PVOC_RATE).compile()
@@ -375,13 +435,17 @@ def main() -> int:
     n = ref.shape[-1] - 1024
     gate = float(np.abs(ref[:n] - got[:n]).max() / np.abs(ref).max())
     check(gate < PVOC_GATE, f"kernel vs matmul path rel {gate} >= {PVOC_GATE}")
+    ref = time_stretch(xs, 1.25, impl="fft").cpu().numpy()  # the same path through cuFFT
+    gate_fft = float(np.abs(ref[:n] - got[:n]).max() / np.abs(ref).max())
+    check(gate_fft < PVOC_GATE, f"kernel vs cuFFT composition rel {gate_fft} >= {PVOC_GATE}")
     tone = (0.5 * np.sin(2 * np.pi * 440.0 * tt)).astype(np.float32)
     shifted = pitch(tone).cpu().numpy()
     peak_hz = float(np.argmax(np.abs(np.fft.rfft(shifted * np.hanning(shifted.size))))) * PVOC_RATE / shifted.size
     check(abs(peak_hz - 880.0) <= PVOC_RATE / shifted.size, f"pitch +12 of 440 Hz peaks at {peak_hz} Hz")
     print(f"phase 7 slice: TimeStretch(1.25) {PVOC_BATCH} x {t} -> ({PVOC_BATCH}, 128000), "
           f"PitchShift(12.0) -> {tuple(y.shape)}, finite, timestretch launches {ts_launches} for 2 "
-          f"calls; kernel vs matmul path on 1 s 440 Hz + noise: rel {gate:.3e} (gate {PVOC_GATE}); "
+          f"calls; kernel vs matmul path on 1 s 440 Hz + noise: rel {gate:.3e}, vs the cuFFT composition "
+          f"(impl='fft') {gate_fft:.3e} (gate {PVOC_GATE}); "
           f"440 Hz shifted +12 peaks at {peak_hz:.1f} Hz")
     del y
 
@@ -403,7 +467,8 @@ def main() -> int:
     print(f"phase 8 kernels ({card}): melspec {k_ms:.4f} ms vs plain {p_ms:.4f} ms and cuFFT composition "
           f"{c_ms:.4f} ms, bound {ms_bound:.4f} ms ({ms_by}: {ms_bytes / 1e6:.2f} MB, {ms_flops / 1e9:.3f} "
           f"GFLOP with an rFFT and the filterbank's nonzeros; {ms_bound / k_ms:.1%} of it); timestretch "
-          f"{ts_ms:.4f} ms vs plain {tp_ms:.4f} ms, bound {ts_bound:.4f} ms ({ts_by})")
+          f"{ts_ms:.4f} ms vs plain {tp_ms:.4f} ms and cuFFT composition {tc_ms:.4f} ms, bound {ts_bound:.4f} ms "
+          f"({ts_by}; {ts_bound / ts_ms:.1%} of it)")
 
     # phase 9: the griffinlim kernel against its plain version at full width
     spec = stft(x, n_fft, 256)
@@ -458,9 +523,10 @@ def main() -> int:
     oracle = ((y - x)[:, 2048:-2048].abs().max() / x.abs().max()).item()
     check(oracle < GL_ORACLE_TOL, f"griffinlim true-phase oracle {oracle} >= {GL_ORACLE_TOL}")
     del spec, y
-    gk_ms = device_ms(lambda: griffinlim.griffin_lim_iteration(mag, zeros, mag, zeros, mag, 0.99), 10)
-    gp_ms = device_ms(lambda: griffinlim.griffin_lim_iteration_reference(mag, zeros, mag, zeros, mag, 0.99, gd), 10)
-    gc_ms = device_ms(lambda: gl_cufft(0.99), 10)
+    gk_t = device_ms(lambda: griffinlim.griffin_lim_iteration(mag, zeros, mag, zeros, mag, 0.99), 10, kernels=1)
+    gp_t = device_ms(lambda: griffinlim.griffin_lim_iteration_reference(mag, zeros, mag, zeros, mag, 0.99, gd), 10)
+    gc_t = device_ms(lambda: gl_cufft(0.99), 10)
+    gk_ms, gp_ms, gc_ms = gk_t[0], gp_t[0], gc_t[0]
     # one iteration, per frame: the prologue (15 per bin: momentum, |a|, the
     # guard, two divides and two products), the inverse rFFT, the synthesis
     # window and overlap-add, the analysis window and the forward rFFT; per
@@ -474,7 +540,7 @@ def main() -> int:
           f"{gl_err:.3e}, rel {gl_rel:.3e} (tol {GL_TOL}); dense path at 501/167 on 8 rows: rel "
           f"{dense_rel:.3e}; two launches bitwise equal; 8 iterations spectral convergence kernel {sc_k:.5f} "
           f"vs plain {sc_p:.5f} (tol {GL_SC_TOL}); true-phase oracle {oracle:.3e} (tol {GL_ORACLE_TOL}); "
-          f"kernel {gk_ms:.4f} ms per iteration, plain {gp_ms:.4f} ms, cuFFT composition {gc_ms:.4f} ms "
+          f"kernel {timed(gk_t)} per iteration, plain {timed(gp_t)}, cuFFT composition {timed(gc_t)} "
           f"(rel {cufft_rel:.3e}; kernel vs cuFFT {kc_rel:.3e}), bound {gl_bound:.4f} ms ({gl_by}: "
           f"{gl_bytes / 1e6:.1f} MB, {gl_flops / 1e9:.3f} GFLOP with FFTs; {gl_bound / gk_ms:.1%} of it) ({card})")
 
@@ -551,6 +617,8 @@ def main() -> int:
     vargs = (lk, -np.log(2 * n_bins), np.log1p(-0.01), np.log(0.01))
     n_frames, k_taps = lv.shape[0], 2 * half + 1
     check((n_frames, n_bins, k_taps) == (626, 602, 139), f"pyin shape {n_frames} frames, {n_bins} bins, {k_taps} taps")
+    vit_cluster = viterbi.kernel_path(PYIN_BATCH, n_bins, k_taps)
+    check(vit_cluster > 1, f"viterbi takes clusters of {vit_cluster} blocks at the pyin shape")
     got = viterbi.pyin_viterbi_forward(lv, lu, *vargs)
     want = viterbi.pyin_viterbi_forward_reference(lv, lu, *vargs)
     torch.cuda.synchronize()
@@ -558,6 +626,21 @@ def main() -> int:
         check(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w), f"viterbi {name} differs from plain")
     vit_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
     raw_max = int(got[2].max()) + half
+    # batch 1 (clusters of 8) on the first row, and a small band (20 bins,
+    # 29 taps) whose margins span more than one neighbour
+    small = {}
+    for name, (ov, ou, tk) in {
+        "row0": (lv[:, :1], lu[:, :1], lk),
+        "narrow": (lv[:, :3, 300:320], lu[:, :3, 300:320], lk[55:84]),
+    }.items():
+        ov, ou = ov.contiguous(), ou.contiguous()
+        small[name] = viterbi.kernel_path(ov.shape[1], ov.shape[2], tk.shape[0])
+        pair = (viterbi.pyin_viterbi_forward(ov, ou, tk, *vargs[1:]),
+                viterbi.pyin_viterbi_forward_reference(ov, ou, tk, *vargs[1:]))
+        for label, g, w in zip(("dv", "du", "off", "pick"), *pair):
+            check(torch.equal(g, w), f"viterbi {label} differs from plain on {name} ({small[name]} blocks)")
+    # 8 blocks for one row; under 14 bins (half the 29 taps) a block for the narrow band
+    check(small["row0"] == 8 and -(-20 // small["narrow"]) < 14, f"viterbi clusters {small}")
     # a tie-heavy band of 255 taps: everything on a 0.5 grid, the unvoiced
     # track constant per frame, every fifth frame quiet so that tracks switch
     rng = np.random.default_rng(SEED)
@@ -571,9 +654,10 @@ def main() -> int:
            viterbi.pyin_viterbi_forward_reference(tv, tu, tk, -3.0, -0.5, -1.0)]
     for name, g, w in zip(("dv", "du", "off", "pick"), *tie):
         check(torch.equal(g, w), f"viterbi {name} differs from plain on the 255-tap tie case")
-    del got, want, tie, tv, tu
-    vk_ms = cuda_ms(lambda: viterbi.pyin_viterbi_forward(lv, lu, *vargs), 10)
-    vp_ms = cuda_ms(lambda: viterbi.pyin_viterbi_forward_reference(lv, lu, *vargs), 2, warmup=1)
+    del got, want, tie, tv, tu, pair
+    vk_t = device_ms(lambda: viterbi.pyin_viterbi_forward(lv, lu, *vargs), 10, kernels=1)
+    vp_t = device_ms(lambda: viterbi.pyin_viterbi_forward_reference(lv, lu, *vargs), 2)
+    vk_ms, vp_ms = vk_t[0], vp_t[0]
     # an add and a max per tap, state and frame past the first, and the
     # merge's 2 adds, compare, select and add per state; bytes: the two
     # observation tensors in, the final messages and the int8 backpointers out
@@ -581,9 +665,11 @@ def main() -> int:
     vit_flops = (n_frames - 1) * vit_states * (2 * k_taps + 5) + vit_states
     vit_bytes = 4 * 2 * n_frames * PYIN_BATCH * n_bins + 4 * vit_states + 2 * n_frames * vit_states + 4 * k_taps
     vit_bound, vit_by = bound_ms(vit_flops, vit_bytes)
-    print(f"phase 12 viterbi vs plain at [{n_frames}, {PYIN_BATCH}, {n_bins}], {k_taps} taps: dv, du, off, pick "
-          f"exactly equal (max|d| {vit_err}; raw offsets up to {raw_max}); 255-tap tie case [64, 8, 700] exactly "
-          f"equal; kernel {vk_ms:.4f} ms, plain {vp_ms:.4f} ms, bound {vit_bound:.4f} ms ({vit_by}: "
+    print(f"phase 12 viterbi vs plain at [{n_frames}, {PYIN_BATCH}, {n_bins}], {k_taps} taps, clusters of "
+          f"{vit_cluster} blocks: dv, du, off, pick exactly equal (max|d| {vit_err}; raw offsets up to {raw_max}); "
+          f"at batch 1 and on 3 rows of 20 bins with 29 taps (clusters {json.dumps(small)}) and on the 255-tap "
+          f"tie case [64, 8, 700] exactly equal; kernel {timed(vk_t)}, plain {timed(vp_t)}, bound "
+          f"{vit_bound:.4f} ms ({vit_by}: "
           f"{vit_flops / 1e9:.3f} G operations, {vit_bytes / 1e6:.1f} MB; the kernel at "
           f"{vit_flops / vk_ms / 1e9:.2f} T operations/s) ({card})")
     del lv, lu, obs_v, voiced_prob, fr
@@ -642,26 +728,26 @@ def main() -> int:
         {
             "name": "melspec", "route": "cuda", "source": "audioflow_torch/csrc/melspec.cu",
             "replaces": "audioflow_tpu/ops/pallas/melspec.py:137", "launches": launches,
-            "max_abs_err": kernel_err, "ms": k_ms, "plain_ms": p_ms,
+            "max_abs_err": kernel_err, "ms": k_ms, "ms_readings": k_t[1], "plain_ms": p_ms,
             "bound_ms": ms_bound, "bound_by": ms_by, "library_ms": None, "path": ms_path, "cufft_ms": c_ms,
         },
         {
             "name": "timestretch", "route": "cuda", "source": "audioflow_torch/csrc/timestretch.cu",
             "replaces": "audioflow_tpu/ops/pallas/timestretch.py:358", "launches": ts_launches,
-            "max_abs_err": ts_err, "ms": ts_ms, "plain_ms": tp_ms,
-            "bound_ms": ts_bound, "bound_by": ts_by, "library_ms": None,
+            "max_abs_err": ts_err, "ms": ts_ms, "ms_readings": ts_t[1], "plain_ms": tp_ms,
+            "bound_ms": ts_bound, "bound_by": ts_by, "library_ms": None, "path": ts_path, "cufft_ms": tc_ms,
         },
         {
             "name": "griffinlim", "route": "cuda", "source": "audioflow_torch/csrc/griffinlim.cu",
             "replaces": "audioflow_tpu/ops/pallas/griffinlim.py:216", "launches": gl_launches,
-            "max_abs_err": gl_err, "ms": gk_ms, "plain_ms": gp_ms,
+            "max_abs_err": gl_err, "ms": gk_ms, "ms_readings": gk_t[1], "plain_ms": gp_ms,
             "bound_ms": gl_bound, "bound_by": gl_by, "library_ms": None, "path": gl_path, "cufft_ms": gc_ms,
         },
         {
             "name": "viterbi", "route": "cuda", "source": "audioflow_torch/csrc/viterbi.cu",
             "replaces": "audioflow_tpu/ops/pallas/viterbi.py:124", "launches": vit_launches,
-            "max_abs_err": vit_err, "ms": vk_ms, "plain_ms": vp_ms,
-            "bound_ms": vit_bound, "bound_by": vit_by, "library_ms": None,
+            "max_abs_err": vit_err, "ms": vk_ms, "ms_readings": vk_t[1], "plain_ms": vp_ms,
+            "bound_ms": vit_bound, "bound_by": vit_by, "library_ms": None, "cluster": vit_cluster,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ import torch
 
 from audioflow_torch.graph import GriffinLim, Pyin, Spectrogram, chain
 from audioflow_torch.models import log_mel_frontend
-from audioflow_torch.ops import griffin_lim, mel_to_audio, pitch_shift, pyin, stft, time_stretch
+from audioflow_torch.ops import griffin_lim, istft, mel_to_audio, pitch_shift, pyin, stft, time_stretch
 from audioflow_torch.ops.kernels import griffinlim, melspec, timestretch, viterbi
 from audioflow_torch.ops.mel import mel_filterbank
 from audioflow_torch.ops.stft import dft_banks, padded_window
@@ -136,6 +136,30 @@ def test_timestretch_kernel_matches_plain(cuda_device, shape, rate, n_fft, hop):
     assert rel <= 1e-4, rel
 
 
+# both paths: the FFT path at three power-of-two transforms, the dense path
+# at an n_fft that is not one; the pvoc rate and two slow-downs
+@pytest.mark.parametrize("rate", [1.25, 0.5, 2.0 / 3.0])
+@pytest.mark.parametrize("n_fft,hop,path", [(1024, 256, "fft"), (512, 128, "fft"), (2048, 512, "fft"),
+                                            (960, 240, "dense")])
+def test_timestretch_paths_match_plain(cuda_device, n_fft, hop, path, rate):
+    assert timestretch.kernel_path(n_fft, hop) == path
+    x = torch.from_numpy(_tones((3, 16000))).to(cuda_device)
+    got = timestretch.time_stretch_fused(x, rate, n_fft, hop)
+    want = timestretch.time_stretch_reference(x, rate, n_fft, hop)
+    assert got.shape == want.shape == (3, round(16000 / rate))
+    # fp32 sums in another order, carried through the phase product
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("n_fft,hop", [(1024, 256), (960, 240)])
+def test_timestretch_is_deterministic(cuda_device, n_fft, hop):
+    """Two launches on the same signal are bitwise equal: the overlap-add is
+    summed in one fixed order, without atomics, on both paths."""
+    x = torch.from_numpy(_tones((4, 24000))).to(cuda_device)
+    a = timestretch.time_stretch_fused(x, 0.8, n_fft, hop)
+    assert torch.equal(a, timestretch.time_stretch_fused(x, 0.8, n_fft, hop))
+
+
 def test_timestretch_kernel_rejects_what_it_does_not_take(cuda_device):
     x = torch.from_numpy(_tones((2, 16000))).to(cuda_device)
     with pytest.raises(ValueError):
@@ -183,6 +207,17 @@ def test_pitch_shift_on_card_matches_cpu(cuda_device):
     assert got.shape == want.shape == x.shape
     rel = np.abs(got - want)[:, :-1024].max() / np.abs(want).max()
     assert rel < 6e-3, rel
+
+
+def test_stft_fft_on_card_matches_cpu(cuda_device):
+    """impl="fft" is cuFFT on the card and torch's FFT on the CPU: the same
+    transform, rounded in another order."""
+    x = torch.from_numpy(_tones((3, 16000)))
+    got, want = stft(x.to(cuda_device), 1024, 256), stft(x, 1024, 256)
+    assert got.shape == want.shape and got.dtype == torch.complex64
+    assert ((got.cpu() - want).abs().max() / want.abs().max()).item() <= 1e-5
+    y, y_cpu = istft(got, 1024, 256, length=16000), istft(want, 1024, 256, length=16000)
+    assert y.device.type == "cuda" and ((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item() <= 1e-5
 
 
 def _magnitude(shape, n_fft=1024, hop=256, device="cpu"):
@@ -329,6 +364,26 @@ def test_viterbi_kernel_matches_plain_exactly(cuda_device, shape, taps, rising):
     # both tracks switch somewhere; at 139 and 255 taps some offsets pass 127
     assert int(got[3][:, 0].max()) == 1 and int(got[3][:, 1].max()) == 1
     assert taps < 139 or int(got[2].max()) + taps // 2 > 127
+
+
+# cluster sizes 1 (140 rows), 2 (64 rows, an odd bin count) and 8 (one row,
+# the pYIN band; a band whose margins span more than one neighbour: 5 bins
+# a block under 14 taps a side; 255 taps, 88 bins a block under 127)
+@pytest.mark.parametrize(
+    "shape,taps,cluster",
+    [((12, 140, 41), 11, 1), ((20, 64, 301), 139, 2), ((20, 1, 602), 139, 8), ((30, 2, 40), 29, 8),
+     ((25, 1, 700), 255, 8)],
+)
+def test_viterbi_clusters_match_plain_exactly(cuda_device, shape, taps, cluster):
+    assert viterbi.kernel_path(shape[1], shape[2], taps) == cluster
+    ov, ou, lk, *consts = _tie_heavy(shape, taps, seed=2, rising=True)
+    ov, ou = ov.to(cuda_device), ou.to(cuda_device)
+    want = viterbi.pyin_viterbi_forward_reference(ov, ou, lk, *consts)
+    before = viterbi.COUNT.launches
+    got = viterbi.pyin_viterbi_forward(ov, ou, lk, *consts)
+    assert viterbi.COUNT.launches == before + 1
+    for name, g, w in zip(("dv", "du", "off", "pick"), got, want):
+        assert torch.equal(g, w), name
 
 
 def test_viterbi_kernel_takes_leading_axes(cuda_device):

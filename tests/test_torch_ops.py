@@ -127,7 +127,11 @@ def test_spectrogram_impl_names(rng):
     x = _t(rng.standard_normal(2048).astype(np.float32))
     want = tops.spectrogram(x, 512, 128)
     for impl in tstft.IMPLS:
-        torch.testing.assert_close(tops.spectrogram(x, 512, 128, impl=impl), want, rtol=0, atol=0)
+        if impl == "fft":  # torch.fft, as jnp.fft in the JAX package: the same function
+            torch.testing.assert_close(tops.spectrogram(x, 512, 128, impl=impl), want, rtol=0,
+                                       atol=1e-5 * want.max().item())
+        else:  # the TPU's layout choices, all the one bank product
+            torch.testing.assert_close(tops.spectrogram(x, 512, 128, impl=impl), want, rtol=0, atol=0)
     with pytest.raises(ValueError):
         tops.spectrogram(x, 512, 128, impl="bogus")
     with pytest.raises(ValueError):
