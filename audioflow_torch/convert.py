@@ -5,7 +5,11 @@ which both packages rebuild bit for bit from the same numpy code; what a
 running stream holds is its state. The JAX package's ``Graph.init_state`` /
 ``stream_step`` state is the pytree ``(carries, pendings, k)`` — its
 checkpoint format (``audioflow_tpu/graph/nodes.py``). The port's state has
-the same structure with tensors for arrays and a plain int for ``k``.
+the same structure with tensors for arrays and a plain int for ``k``. A
+node's carry is an array (the resampler's history, the IIR state, a
+scalar envelope or gain per row), a tuple of them (Preemphasis' sample and
+bool started flag, Istft's overlap-add and window-square tails) or None;
+each leaf keeps its dtype both ways.
 """
 
 from __future__ import annotations

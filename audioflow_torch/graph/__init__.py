@@ -2,21 +2,39 @@
 
 from .graph import Graph, chain
 from .nodes import (
+    Agc,
+    BiquadChain,
+    Cmvn,
+    Compressor,
+    Gain,
     GriffinLim,
+    Istft,
+    Limiter,
     LogMelSpec,
+    Magnitude,
     MelProject,
+    Mfcc,
     Node,
+    NoiseGate,
+    PeakNormalize,
     PitchShift,
+    Power,
+    Preemphasis,
     Pyin,
     Resample,
+    RmsNormalize,
     Spectrogram,
+    Stft,
     TimeStretch,
+    ToMono,
     Yin,
     node_registry,
     register_node,
 )
 
 __all__ = [
-    "Graph", "GriffinLim", "LogMelSpec", "MelProject", "Node", "PitchShift", "Pyin", "Resample", "Spectrogram",
-    "TimeStretch", "Yin", "chain", "node_registry", "register_node",
+    "Agc", "BiquadChain", "Cmvn", "Compressor", "Gain", "Graph", "GriffinLim", "Istft", "Limiter", "LogMelSpec",
+    "Magnitude", "MelProject", "Mfcc", "Node", "NoiseGate", "PeakNormalize", "PitchShift", "Power", "Preemphasis",
+    "Pyin", "Resample", "RmsNormalize", "Spectrogram", "Stft", "TimeStretch", "ToMono", "Yin", "chain",
+    "node_registry", "register_node",
 ]

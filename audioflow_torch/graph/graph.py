@@ -12,8 +12,9 @@ Mirrors ``audioflow_tpu/graph/graph.py::Graph``. Two execution modes:
 The chunk counter ``k`` is a plain int, so the state converts both ways with
 the JAX package's checkpoint pytree (:mod:`audioflow_torch.convert`).
 Streamed output equals offline output shifted by ``stream_latency``: the
-delay alignment (``_delays``) and warmup zeroing (``_warmups``) are ported
-line for line.
+delay alignment (``_delays``), the warmup zeroing (``_warmups``) and the
+nodes' two hooks into it (``wants_first_index``, ``warmup_passthrough``) are
+ported line for line.
 """
 
 from __future__ import annotations
@@ -294,7 +295,10 @@ class Graph:
 
         The carried ``k`` (chunk index) drives warmup zeroing (see
         :meth:`_warmups`): node i's input positions below ``warmups[i]`` are
-        forced to zero so its state matches the offline zero-prehistory run.
+        forced to zero so its state matches the offline zero-prehistory run,
+        unless the node sets ``warmup_passthrough``. A node that sets
+        ``wants_first_index`` gets ``first_index = warmups[i] - k * lens[i]``,
+        the chunk-relative position of its first real sample.
         """
         carries, pendings, k = state
         lens = self.chunk_lens(chunk.shape[-1])
@@ -304,13 +308,16 @@ class Graph:
         domain = "samples"
         for i, (node, carry, pending) in enumerate(zip(self.nodes, carries, pendings)):
             n_zero = min(lens[i], warmups[i] - k * lens[i])
-            if n_zero > 0:
+            if n_zero > 0 and not node.warmup_passthrough:
                 axis = (-2 if domain == "frames" else -1) % x.ndim
                 x = x.clone()
                 x.narrow(axis, 0, n_zero).zero_()
             if node.domain_out != "any":
                 domain = node.domain_out
-            carry, x = node.step(carry, x)
+            if node.wants_first_index:
+                carry, x = node.step(carry, x, first_index=warmups[i] - k * lens[i])
+            else:
+                carry, x = node.step(carry, x)
             if pending is not None:
                 axis = self._stream_axis(node) % x.ndim
                 n_out = x.shape[axis]

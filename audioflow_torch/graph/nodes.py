@@ -18,12 +18,16 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..errors import AudioError, ErrorCode
+from ..ops import dynamics
+from ..ops.biquad import Biquad, iir_apply, make_iir_plan
+from ..ops.framing import overlap_add
 from ..ops.griffinlim import griffin_lim
 from ..ops.kernels.melspec import mel_spectrogram
-from ..ops.mel import apply_mel, cached_filterbank, log_mel
+from ..ops.mel import apply_mel, cached_filterbank, log_mel, mfcc
 from ..ops.phase_vocoder import pitch_shift, time_stretch
 from ..ops.pitch import pyin, yin_voicing
 from ..ops.resample import (
@@ -33,7 +37,17 @@ from ..ops.resample import (
     resample_stream_step,
     stream_chunk_multiple,
 )
-from ..ops.stft import dft_banks, pad_center, padded_window, spectrogram
+from ..ops.stft import (
+    dft_banks,
+    frames_from_spec,
+    istft,
+    magnitude,
+    pad_center,
+    padded_window,
+    power,
+    spectrogram,
+    stft,
+)
 from ..utils.cache import on_device
 
 _REGISTRY: dict[str, type] = {}
@@ -56,6 +70,19 @@ class Node:
     domain_in = "samples"
     domain_out = "samples"
     streamable = True
+    # When True, Graph.stream_step passes step(carry, chunk, first_index=i)
+    # where i is the chunk-relative index of the stream's first real (offline
+    # position 0) sample: negative once passed, >= chunk length before it
+    # arrives. For nodes whose edge convention is position-dependent and so
+    # not a zero-input fixpoint (Preemphasis' Kaldi y[0] = x[0] - k*x[0]).
+    wants_first_index = False
+    # When True, Graph.stream_step does NOT zero this node's upstream-warmup
+    # input region (Graph._warmups). False is right for recursive and
+    # accumulating nodes (biquad, limiter): offline they start from zero
+    # state at sample 0, so the preroll must look like zeros. Istft opts out:
+    # its WOLA bookkeeping counts every incoming frame and is exact for any
+    # prefix, but wrong for zeroed frames.
+    warmup_passthrough = False
 
     # --- rate/meta propagation -------------------------------------------
     def rate_out(self, rate_in: int | None) -> int | None:
@@ -96,6 +123,23 @@ class Node:
 
     def step(self, carry, chunk):
         return carry, self.apply(chunk)
+
+
+@register_node
+@dataclass(frozen=True)
+class ToMono(Node):
+    """Interleaved multi-channel -> mono mean."""
+
+    channels: int = 2
+
+    def apply(self, x):
+        return dynamics.to_mono(x, self.channels)
+
+    def chunk_multiple(self):
+        return self.channels
+
+    def out_len(self, n_in):
+        return n_in // self.channels
 
 
 @register_node
@@ -148,6 +192,180 @@ class Resample(Node):
         if self._identity:
             return carry, chunk
         return resample_stream_step(self._stream_plan(chunk.shape[-1]), carry, chunk)
+
+
+@register_node
+@dataclass(frozen=True)
+class BiquadChain(Node):
+    """Cascade of biquads (BASELINE config 3's EQ chain); the carry is the
+    cascade's state ``[..., order]``."""
+
+    biquads: tuple[Biquad, ...] = ()
+    block: int = 128
+
+    def __post_init__(self):
+        if not self.biquads:
+            raise AudioError("empty biquad chain", code=ErrorCode.CONFIG_VALIDATION_ERROR)
+
+    @property
+    def _plan(self):
+        return make_iir_plan(tuple(self.biquads), self.block)
+
+    def apply(self, x):
+        y, _ = iir_apply(x, self._plan)
+        return y
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        return torch.zeros((*lead_shape, self._plan.order), dtype=dtype, device=device)
+
+    def step(self, carry, chunk):
+        y, s = iir_apply(chunk, self._plan, zi=carry)
+        return s, y
+
+
+@register_node
+@dataclass(frozen=True)
+class Gain(Node):
+    db: float = 0.0
+
+    def apply(self, x):
+        return dynamics.gain_db(x, self.db)
+
+
+@register_node
+@dataclass(frozen=True)
+class PeakNormalize(Node):
+    """Whole-signal op: offline only."""
+
+    target_peak: float = 1.0
+    streamable = False
+
+    def apply(self, x):
+        return dynamics.peak_normalize(x, self.target_peak)
+
+
+@register_node
+@dataclass(frozen=True)
+class RmsNormalize(Node):
+    target_db: float = -20.0
+    streamable = False
+
+    def apply(self, x):
+        return dynamics.rms_normalize(x, self.target_db)
+
+
+@dataclass(frozen=True)
+class _Envelope(Node):
+    """Streaming shared by the peak-envelope nodes (``Limiter``,
+    ``Compressor``, ``NoiseGate``): the envelope's last value is the carry,
+    decayed into the next chunk as ``carry * r ** (1..t)``, so streamed
+    equals offline."""
+
+    def _coeff(self) -> float:
+        if self.sample_rate is None:
+            raise AudioError(f"{type(self).__name__}.sample_rate unresolved; set input_rate on the graph")
+        return float(np.exp(-1.0 / (self.release_ms * 1e-3 * self.sample_rate)))
+
+    def _gain(self, env: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def apply(self, x):
+        return x * self._gain(dynamics.envelope_peak_release(x.abs(), self._coeff()))
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        return torch.zeros(lead_shape, dtype=dtype, device=device)
+
+    def step(self, carry, chunk):
+        r = self._coeff()
+        env = dynamics.envelope_peak_release(chunk.abs(), r)
+        t = chunk.shape[-1]
+        decay = carry[..., None] * torch.pow(r, torch.arange(1, t + 1, dtype=chunk.dtype, device=chunk.device))
+        env = torch.maximum(env, decay)
+        return env[..., -1], chunk * self._gain(env)
+
+
+@register_node
+@dataclass(frozen=True)
+class Limiter(_Envelope):
+    """Peak limiter; envelope carry makes streaming exact."""
+
+    threshold_db: float = -1.0
+    release_ms: float = 50.0
+    sample_rate: int | None = None
+
+    def _gain(self, env):
+        return dynamics.limiter_gain(env, self.threshold_db)
+
+
+@register_node
+@dataclass(frozen=True)
+class Compressor(_Envelope):
+    """Downward compressor (threshold/ratio/knee); envelope carry makes
+    streaming exact, same machinery as :class:`Limiter`."""
+
+    threshold_db: float = -20.0
+    ratio: float = 4.0
+    release_ms: float = 100.0
+    knee_db: float = 0.0
+    sample_rate: int | None = None
+
+    def _gain(self, env):
+        return dynamics.compressor_gain(env, self.threshold_db, self.ratio, self.knee_db)
+
+
+@register_node
+@dataclass(frozen=True)
+class NoiseGate(_Envelope):
+    """Hard downward gate below ``threshold_db`` (attenuates by ``floor_db``);
+    same exact-streaming envelope carry as :class:`Limiter`."""
+
+    threshold_db: float = -60.0
+    release_ms: float = 100.0
+    floor_db: float = -80.0
+    sample_rate: int | None = None
+
+    def _gain(self, env):
+        return dynamics.gate_gain(env, self.threshold_db, self.floor_db)
+
+
+@register_node
+@dataclass(frozen=True)
+class Agc(Node):
+    """Automatic gain control (slow leveler, ``ops.dynamics.agc``). The
+    gain-dB carry makes streamed == offline exactly when chunks are block
+    multiples (``chunk_multiple`` enforces it)."""
+
+    target_db: float = -20.0
+    block: int = 1024
+    max_gain_db: float = 30.0
+    up_db_per_s: float = 6.0
+    down_db_per_s: float = 60.0
+    floor_db: float = -55.0
+    sample_rate: int | None = None
+
+    def _rate(self):
+        if self.sample_rate is None:
+            raise AudioError("Agc.sample_rate unresolved; set input_rate on the graph")
+        return self.sample_rate
+
+    def _agc(self, x, gain0=None):
+        return dynamics.agc(
+            x, self.target_db, self.block, self.max_gain_db,
+            self.up_db_per_s, self.down_db_per_s, self._rate(), self.floor_db, gain0=gain0,
+        )
+
+    def apply(self, x):
+        return self._agc(x)[0]
+
+    def chunk_multiple(self):
+        return self.block
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        return torch.zeros(lead_shape, dtype=dtype, device=device)
+
+    def step(self, carry, chunk):
+        y, g = self._agc(chunk, carry)
+        return g, y
 
 
 @dataclass(frozen=True)
@@ -231,6 +449,26 @@ class Spectrogram(_Framed):
 
 @register_node
 @dataclass(frozen=True)
+class Stft(_Framed):
+    """samples -> complex frames ``[..., F, n_fft//2+1]`` (``ops.stft``, its
+    default ``impl="fft"``). Streaming keeps the framing nodes' hop-aligned
+    overlap carry: the stream equals the offline center=False STFT of the
+    zero-prehistory signal, with cdiv(n_fft, hop) - 1 frames of latency."""
+
+    n_fft: int = 1024
+    hop: int = 256
+    window: str = "hann"
+    center: bool = True
+
+    def apply(self, x):
+        return stft(x, self.n_fft, self.hop, window=self.window, center=self.center)
+
+    def _frames(self, x):
+        return stft(x, self.n_fft, self.hop, window=self.window, center=False)
+
+
+@register_node
+@dataclass(frozen=True)
 class LogMelSpec(_Framed):
     """Fused log-mel spectrogram through the hand-written CUDA kernel
     (``ops.kernels.melspec``): the same function as Spectrogram + MelProject.
@@ -299,6 +537,37 @@ class MelProject(Node):
         if self.log is None:
             return apply_mel(x, fb)
         return log_mel(x, fb, self.floor, self.log)
+
+
+@register_node
+@dataclass(frozen=True)
+class Magnitude(Node):
+    domain_in = "frames"
+    domain_out = "frames"
+
+    def apply(self, x):
+        return magnitude(x)
+
+
+@register_node
+@dataclass(frozen=True)
+class Power(Node):
+    domain_in = "frames"
+    domain_out = "frames"
+
+    def apply(self, x):
+        return power(x)
+
+
+@register_node
+@dataclass(frozen=True)
+class Mfcc(Node):
+    n_mfcc: int = 13
+    domain_in = "frames"
+    domain_out = "frames"
+
+    def apply(self, x):
+        return mfcc(x, self.n_mfcc)
 
 
 @register_node
@@ -441,3 +710,124 @@ class Pyin(Node):
         if self.center:
             n_in = n_in + 2 * (self.frame_length // 2)
         return (n_in - self.frame_length) // self.hop + 1
+
+
+@register_node
+@dataclass(frozen=True)
+class Preemphasis(Node):
+    """ASR-standard first-order high-pass (y[n] = x[n] - k*x[n-1]).
+
+    Streaming carries the previous chunk's last sample, so streamed ==
+    offline. The Kaldi edge convention (y[0] = x[0] - k*x[0]: the first
+    sample is its own predecessor) depends on position, so unlike every
+    zero-prehistory recurrence it is NOT a fixpoint of zero input:
+    downstream of a latency-bearing node, the graph's warmup zeroing alone
+    would make the first real sample read prev=0. The node therefore opts
+    into ``wants_first_index``, and the graph passes the offline position of
+    sample 0 (``Graph._warmups``), so the edge convention lands on the right
+    sample whatever the upstream latency.
+    """
+
+    coeff: float = 0.97
+    wants_first_index = True
+
+    def apply(self, x):
+        return dynamics.preemphasis(x, self.coeff)
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        # (previous sample, started flag); the flag serves direct step()
+        # callers: inside a Graph, first_index supersedes it
+        return (
+            torch.zeros((*lead_shape, 1), dtype=dtype, device=device),
+            torch.zeros((*lead_shape, 1), dtype=torch.bool, device=device),
+        )
+
+    def step(self, carry, chunk, first_index=None):
+        prev_sample, started = carry
+        if first_index is None:
+            prev0 = torch.where(started, prev_sample, chunk[..., :1])
+            prev = torch.cat([prev0, chunk[..., :-1]], dim=-1)
+        else:
+            prev = torch.cat([prev_sample, chunk[..., :-1]], dim=-1)
+            if 0 <= first_index < chunk.shape[-1]:
+                prev = prev.clone()
+                prev[..., first_index] = chunk[..., first_index]
+        new_carry = (chunk[..., -1:], torch.ones_like(started))
+        return new_carry, chunk - self.coeff * prev
+
+
+@register_node
+@dataclass(frozen=True)
+class Cmvn(Node):
+    """Per-utterance cepstral mean/variance normalization (offline only)."""
+
+    norm_var: bool = False
+    streamable = False
+    domain_in = "frames"
+    domain_out = "frames"
+
+    def apply(self, x):
+        return dynamics.cmvn(x, self.norm_var)
+
+
+@register_node
+@dataclass(frozen=True)
+class Istft(Node):
+    """Inverse STFT (WOLA): complex frames -> samples.
+
+    Streaming (requires center=False): a frame only contributes to samples at
+    or after its start, so emitting hop samples per frame is causally
+    complete with ZERO latency; the carry holds the pending overlap-add tail
+    plus the matching window-square tail, making the emitted stream exactly
+    the offline ISTFT prefix (the final n_fft - hop tail stays unflushed).
+    """
+
+    n_fft: int = 1024
+    hop: int = 256
+    window: str = "hann"
+    center: bool = True
+    impl: str = "matmul"
+    domain_in = "frames"
+    domain_out = "samples"
+    # the WOLA identity reconstruction is exact for ANY incoming frame
+    # stream; the wsum carry counts every frame, so zeroed warmup frames
+    # would corrupt the normalisation: consume the upstream preroll instead
+    warmup_passthrough = True
+
+    @property
+    def streamable(self):  # center-padding needs the whole signal
+        return not self.center
+
+    def apply(self, x):
+        return istft(x, self.n_fft, self.hop, window=self.window, center=self.center, impl=self.impl)
+
+    # streaming: the chunk unit is FRAMES in, hop*frames samples out
+    def validate_chunk(self, n_in):
+        if self.center:
+            raise AudioError(
+                "Istft: streaming requires center=False",
+                code=ErrorCode.CONFIG_VALIDATION_ERROR,
+            )
+
+    def out_len(self, n_in):
+        return n_in * self.hop
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        tail = self.n_fft - self.hop
+        return (
+            torch.zeros((*lead_shape, tail), dtype=torch.float32, device=device),
+            torch.zeros((tail,), dtype=torch.float32, device=device),
+        )
+
+    def step(self, carry, spec):
+        ola_tail, wsum_tail = carry
+        w = on_device(padded_window(self.n_fft, self.window), spec.device)
+        m = spec.shape[-2]
+        frames = frames_from_spec(spec, self.n_fft, self.impl)
+        y = overlap_add(frames * w, self.hop)
+        ws = overlap_add((w * w).expand(m, self.n_fft), self.hop)
+        tail = self.n_fft - self.hop
+        y = torch.cat([y[..., :tail] + ola_tail, y[..., tail:]], dim=-1)
+        ws = torch.cat([ws[:tail] + wsum_tail, ws[tail:]])
+        emit = y[..., : m * self.hop] / torch.clamp_min(ws[: m * self.hop], 1e-11)
+        return (y[..., m * self.hop :], ws[m * self.hop :]), emit

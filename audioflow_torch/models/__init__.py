@@ -1,5 +1,15 @@
 """Standard pipeline constructors."""
 
-from .pipelines import log_mel_frontend, stft_magnitude_graph
+from .pipelines import (
+    eq_bands_default,
+    eq_chain_graph,
+    kaldi_fbank_frontend,
+    log_mel_frontend,
+    master_chain_graph,
+    stft_magnitude_graph,
+)
 
-__all__ = ["log_mel_frontend", "stft_magnitude_graph"]
+__all__ = [
+    "eq_bands_default", "eq_chain_graph", "kaldi_fbank_frontend", "log_mel_frontend", "master_chain_graph",
+    "stft_magnitude_graph",
+]

@@ -5,7 +5,19 @@ Each returns a :class:`~audioflow_torch.graph.Graph`.
 
 from __future__ import annotations
 
-from ..graph import Graph, LogMelSpec, MelProject, Resample, Spectrogram, chain
+from ..graph import (
+    BiquadChain,
+    Cmvn,
+    Graph,
+    Limiter,
+    LogMelSpec,
+    MelProject,
+    Preemphasis,
+    Resample,
+    Spectrogram,
+    chain,
+)
+from ..ops import biquad as bq
 
 
 def stft_magnitude_graph(
@@ -32,23 +44,85 @@ def log_mel_frontend(
     center: bool = False,
     fused: bool = True,
 ) -> Graph:
-    """The flagship frontend: polyphase resample -> STFT -> power -> 128-bin
-    log-mel.
+    """The flagship frontend (benchmark configs 2 and 5): polyphase
+    resample -> (optional EQ) -> STFT -> power -> 128-bin log-mel.
 
+    ``eq`` is a tuple of :class:`~audioflow_torch.ops.biquad.Biquad` run as
+    a :class:`~audioflow_torch.graph.BiquadChain` after the resampler.
     ``fused=True`` (the default here) runs the STFT, power, mel and log as
     one :class:`~audioflow_torch.graph.LogMelSpec` node, that is, through the
     hand-written CUDA kernel. The JAX package defaults to ``False`` on the
     strength of a TPU measurement that does not carry over. ``fused=False``
     gives the Spectrogram + MelProject pair in plain torch; both forms
-    compute the same function. ``eq`` (a BiquadChain) is not ported yet.
+    compute the same function.
     """
-    if eq:
-        raise NotImplementedError("eq needs BiquadChain, which the port does not have yet")
     nodes: list = []
     if input_rate != target_rate:
         nodes.append(Resample(input_rate, target_rate, resample_mode))
+    if eq:
+        nodes.append(BiquadChain(tuple(eq)))
     if fused:
         nodes.append(LogMelSpec(n_fft, hop, n_mels, center=center))
     else:
         nodes += [Spectrogram(n_fft, hop, center=center, power=True), MelProject(n_mels=n_mels)]
     return Graph(tuple(nodes), input_rate=input_rate, name="log_mel_frontend")
+
+
+def eq_bands_default(sample_rate: float) -> tuple:
+    """High-pass + 5-band parametric EQ (benchmark config 3's chain)."""
+    return (
+        bq.highpass(60.0, sample_rate),
+        bq.peaking(150.0, sample_rate, 2.0, 1.0),
+        bq.peaking(400.0, sample_rate, -3.0, 1.2),
+        bq.peaking(1000.0, sample_rate, 2.5, 0.9),
+        bq.peaking(3000.0, sample_rate, -2.0, 1.4),
+        bq.peaking(8000.0, sample_rate, 1.5, 1.0),
+    )
+
+
+def eq_chain_graph(sample_rate: int = 16000, bands: tuple | None = None) -> Graph:
+    return chain(
+        BiquadChain(bands or eq_bands_default(sample_rate)),
+        input_rate=sample_rate,
+        name="eq_chain",
+    )
+
+
+def master_chain_graph(
+    sample_rate: int = 16000,
+    bands: tuple | None = None,
+    limiter_db: float = -1.0,
+    release_ms: float = 50.0,
+) -> Graph:
+    """Benchmark config 3: high-pass + 5-band parametric EQ + limiter."""
+    return chain(
+        BiquadChain(bands or eq_bands_default(sample_rate)),
+        Limiter(limiter_db, release_ms),
+        input_rate=sample_rate,
+        name="master_chain",
+    )
+
+
+def kaldi_fbank_frontend(
+    sample_rate: int = 16000,
+    frame_ms: float = 25.0,
+    hop_ms: float = 10.0,
+    n_mels: int = 80,
+    preemph: float = 0.97,
+    window: str = "povey",
+    cmvn: bool = True,
+    norm_var: bool = False,
+) -> Graph:
+    """Kaldi-style filterbank frontend: pre-emphasis -> povey-window STFT ->
+    power -> HTK-mel log-fbank -> CMVN. The standard ASR feature family."""
+    win = int(sample_rate * frame_ms / 1000)
+    hop = int(sample_rate * hop_ms / 1000)
+    n_fft = 1 << (win - 1).bit_length()  # next pow2
+    nodes: list = [
+        Preemphasis(preemph),
+        Spectrogram(n_fft, hop, window=window, center=False, power=True, win_length=win),
+        MelProject(n_mels=n_mels, htk=True, norm=None, f_min=20.0, log="ln"),
+    ]
+    if cmvn:
+        nodes.append(Cmvn(norm_var=norm_var))
+    return Graph(tuple(nodes), input_rate=sample_rate, name="kaldi_fbank")

@@ -1,5 +1,39 @@
 """Signal ops of the port: plain torch on tensors, fp32 matmuls."""
 
+from . import biquad, dynamics
+from .biquad import (
+    Biquad,
+    allpass,
+    bandpass,
+    biquad_chain,
+    high_shelf,
+    highpass,
+    iir_apply,
+    low_shelf,
+    lowpass,
+    make_iir_plan,
+    notch,
+    peaking,
+)
+from .dynamics import (
+    agc,
+    cmvn,
+    compressor,
+    compressor_gain,
+    deemphasis,
+    energy_to_dbfs,
+    gain_db,
+    gate_gain,
+    limiter,
+    mean_square_energy,
+    noise_gate,
+    peak_normalize,
+    preemphasis,
+    rms_normalize,
+    split_silence,
+    to_mono,
+    trim_silence,
+)
 from .framing import frame, num_frames, overlap_add
 from .griffinlim import griffin_lim
 from .mel import (
@@ -23,9 +57,13 @@ from .stft import istft, magnitude, power, spectrogram, stft
 from .windows import get_window
 
 __all__ = [
-    "apply_mel", "cmnd_frames", "dct_matrix", "frame", "get_window", "griffin_lim", "hz_to_mel", "istft",
-    "log_mel", "magnitude", "max_plus_band", "max_plus_band_argmax", "mel_filterbank", "mel_to_audio",
-    "mel_to_hz", "mel_to_stft", "mfcc", "mfcc_to_audio", "mfcc_to_log_mel", "num_frames", "overlap_add",
-    "phase_vocoder", "pitch_shift", "power", "pyin", "pyin_frames", "resample", "spectrogram", "stft",
-    "time_stretch", "transition_local", "yin", "yin_frames", "yin_voicing",
+    "Biquad", "agc", "allpass", "apply_mel", "bandpass", "biquad", "biquad_chain", "cmnd_frames", "cmvn",
+    "compressor", "compressor_gain", "dct_matrix", "deemphasis", "dynamics", "energy_to_dbfs", "frame",
+    "gain_db", "gate_gain", "get_window", "griffin_lim", "high_shelf", "highpass", "hz_to_mel", "iir_apply",
+    "istft", "limiter", "log_mel", "low_shelf", "lowpass", "magnitude", "make_iir_plan", "max_plus_band",
+    "max_plus_band_argmax", "mean_square_energy", "mel_filterbank", "mel_to_audio", "mel_to_hz", "mel_to_stft",
+    "mfcc", "mfcc_to_audio", "mfcc_to_log_mel", "noise_gate", "notch", "num_frames", "overlap_add", "peak_normalize",
+    "peaking", "phase_vocoder", "pitch_shift", "power", "preemphasis", "pyin", "pyin_frames", "resample",
+    "rms_normalize", "spectrogram", "split_silence", "stft", "time_stretch", "to_mono", "transition_local",
+    "trim_silence", "yin", "yin_frames", "yin_voicing",
 ]

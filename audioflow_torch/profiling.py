@@ -1,6 +1,6 @@
 """Device-time breakdown of the port's paths on one CUDA card.
 
-    python -m audioflow_torch.profiling [logmel] [pvoc] [pitch] [griffinlim] [pyin]
+    python -m audioflow_torch.profiling [logmel] [pvoc] [pitch] [griffinlim] [pyin] [master] [streaming]
 
 Each path runs in two or three variants at the JAX benchmark's sizes
 (``audioflow_tpu/bench.py``, ``BENCHMARKS.md``): through the hand-written
@@ -25,7 +25,16 @@ and prints no result.
   0.1 semitone bins, 100 thresholds) on 64 x 10 s of the vibrato batch
   (:func:`vibrato_batch`), ``viterbi_impl="auto"`` (viterbi kernel, one
   launch) vs ``"xla"`` (the plain per-frame scan). Both variants share the
-  candidate stage, plain torch with thousands of small launches.
+  candidate stage, plain torch with thousands of small launches;
+* ``master``: BASELINE config 3, ``master_chain_graph(16000).compile()``
+  (high-pass + 5-band EQ + limiter, plain torch) on 64 x 10 s at 16 kHz,
+  ``chunked`` (the entry point: past 65,536 samples it streams 16,384-sample
+  chunks) vs ``whole`` (``compile(chunked=False)``, one call per node);
+* ``streaming``: BASELINE config 5,
+  ``log_mel_frontend(44100, 16000, 1024, 256, 128, eq=eq_bands_default(16000))``
+  streamed over 256 x 10 s in 14,112-sample chunks (melspec kernel) vs the
+  JAX benchmark's composition ``Resample -> BiquadChain -> Spectrogram ->
+  MelProject`` (plain torch).
 """
 
 from __future__ import annotations
@@ -62,7 +71,8 @@ def vibrato_batch(batch: int = 64, seconds: float = 10.0, rate: int = 16000, see
 
 def _paths(dev):
     """name -> (audio seconds, {variant: fn}), built lazily per path."""
-    from .models import log_mel_frontend
+    from .graph import BiquadChain, MelProject, Resample, Spectrogram, chain
+    from .models import eq_bands_default, log_mel_frontend, master_chain_graph
     from .ops import griffin_lim, pitch_shift, pyin, stft, time_stretch
 
     def logmel():
@@ -88,13 +98,51 @@ def _paths(dev):
         x = torch.from_numpy(vibrato_batch()).to(dev)
         return 640.0, {"kernel": lambda: pyin(x, 16000), "scan": lambda: pyin(x, 16000, viterbi_impl="xla")}
 
+    def master():
+        x = torch.from_numpy(tone_batch(64, 10.0, 16000)).to(dev)
+        chunked, whole = master_chain_graph(16000).compile(), master_chain_graph(16000).compile(chunked=False)
+        return 640.0, {"chunked": lambda: chunked(x), "whole": lambda: whole(x)}
+
+    def streaming():
+        chunk = 14112
+        x = torch.from_numpy(tone_batch(256, 10.0, 44100)[:, : 31 * chunk]).to(dev)
+        eq = eq_bands_default(16000.0)
+        graphs = {
+            "kernel": log_mel_frontend(44100, 16000, 1024, 256, 128, eq=eq),
+            "plain": chain(Resample(44100, 16000, "kaiser"), BiquadChain(eq), Spectrogram(1024, 256, center=False),
+                           MelProject(n_mels=128), input_rate=44100),
+        }
+        return 256 * x.shape[-1] / 44100, {v: (lambda g=g: g.scan_stream(x, chunk)) for v, g in graphs.items()}
+
     return {
         "logmel": logmel,
         "pvoc": lambda: stretch(lambda x, impl: time_stretch(x, 1.25, impl=impl)),
         "pitch": lambda: stretch(lambda x, impl: pitch_shift(x, 12.0, impl=impl)),
         "griffinlim": griffinlim,
         "pyin": pyin_path,
+        "master": master,
+        "streaming": streaming,
     }
+
+
+def aten_ops(fn) -> int:
+    """The aten ops that one call of ``fn`` runs, views and reshapes left
+    out, counted exactly by a dispatch mode on any device: the count of its
+    launches that the profiler's traces, which drop events on the H100, do
+    not give reliably."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountOps(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view and func is not torch.ops.aten._unsafe_view.default:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with CountOps() as ops:
+        fn()
+    return ops.n
 
 
 def profile(fn) -> dict:

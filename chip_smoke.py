@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
-Drives the port's four ported paths through the hand-written CUDA kernels
+Drives the port's ported paths through the hand-written CUDA kernels, and
+BASELINE configs 3 and 5 through the biquad engine and the melspec kernel,
 and checks them. The log-mel frontend
 ``log_mel_frontend(44100, 16000, 1024, 256, 128, center=False)`` streamed in
 14,112-sample chunks over a 512 x 10 s tone batch (kernel ``melspec``);
@@ -66,7 +67,23 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
     and the JAX package's ``pyin_220_rel`` (1 launch) and ``yin_220_rel``
     gates;
 14. pYIN timing: ``pyin`` through the kernel and through the plain scan,
-    alternated, and ``yin`` on the same batch, in audio-seconds per second.
+    alternated, and ``yin`` on the same batch, in audio-seconds per second;
+15. BASELINE config 3, ``master_chain_graph(16000).compile()`` on 64 x 10 s
+    of the tone batch: the EQ on 4 rows against the float64
+    ``scipy.signal.sosfilt``, the chain on the card against the CPU, the
+    limiter's peak (and at four times the level, where it engages),
+    ``scan_stream`` in 16,384-sample chunks against ``compile()`` and the
+    whole-array chain, and one ``BiquadChain`` call's aten ops, counted
+    exactly, at 1,250 and 5,000 blocks (the doubling scan adds two steps,
+    not 3,750 blocks);
+16. BASELINE config 5, ``log_mel_frontend(..., eq=eq_bands_default(16000))``
+    streamed over 256 x 31 chunks of 14,112 at 44.1 kHz: one melspec launch
+    per chunk, shape, finiteness, and agreement with the JAX benchmark's
+    plain composition Resample -> BiquadChain -> Spectrogram -> MelProject;
+17. their timing: config 3 through ``compile()``, config 5's kernel path and
+    plain composition alternated, and ``BiquadChain``'s share of config 5's
+    device time (its 31 steps on the resampled chunks, timed alone), with
+    its device events a chunk under the profiler.
 
 Every device time (phases 3, 6, 9, 12) is the median of three readings
 under torch.profiler, printed with the readings and the device events per
@@ -136,6 +153,16 @@ FP32_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
 # readings per device time; their median is reported
 READINGS = 3
+# BASELINE config 3 (master): 64 x 10 s at 16 kHz (audioflow_tpu/bench.py:103-108)
+MASTER_BATCH = 64
+MASTER_RATE = 16000
+# BASELINE config 5 (streaming): 256 x 31 chunks of 14,112 at 44.1 kHz (bench.py:132-165)
+STREAM_BATCH = 256
+# the EQ against the float64 sosfilt oracle: the reference's biquad_chain
+# budget (validate.py:58-70, 417)
+IIR_ORACLE_TOL = 1e-4
+# sample space: the card against the CPU, streamed against offline
+SAMPLE_TOL = 1e-5
 
 
 def rfft_flops(n: int) -> float:
@@ -211,6 +238,127 @@ def device_ms(fn, iters: int, kernels: int | None = None) -> tuple[float, list[f
 def timed(t: tuple[float, list[float], float]) -> str:
     """A :func:`device_ms` result for a log line."""
     return f"{t[0]:.4f} ms (readings {t[1]}, {t[2]:g} device events a call)"
+
+
+def configs_3_and_5(dev: torch.device, card: str) -> int:
+    """Phases 15-17: BASELINE configs 3 and 5 through the port's entry
+    points. Returns melspec's launches on the config-5 stream."""
+    import scipy.signal
+
+    from audioflow_torch.graph import BiquadChain, MelProject, Resample, Spectrogram, chain
+    from audioflow_torch.models import eq_bands_default, eq_chain_graph, log_mel_frontend, master_chain_graph
+    from audioflow_torch.ops.kernels import melspec
+    from audioflow_torch.profiling import aten_ops, tone_batch
+
+    # phase 15: config 3, high-pass + 5-band EQ + limiter, through Graph.compile()
+    x_np = tone_batch(MASTER_BATCH, SECONDS, MASTER_RATE, SEED)
+    t = x_np.shape[-1]
+    g3 = master_chain_graph(MASTER_RATE)
+    master, whole = g3.compile(), g3.compile(chunked=False)
+    y = master(x_np, device=dev)  # numpy input goes to the card
+    torch.cuda.synchronize()
+    check(y.device.type == dev.type and tuple(y.shape) == (MASTER_BATCH, t), f"master chain {tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()), "non-finite master chain samples")
+    bands = eq_bands_default(float(MASTER_RATE))
+    y_eq = eq_chain_graph(MASTER_RATE).compile()(x_np, device=dev)
+    sos = np.stack([np.concatenate(b.as_ba()) for b in bands])
+    oracle = scipy.signal.sosfilt(sos, x_np[:4].astype(np.float64), axis=-1)
+    eq_err = float(np.abs(y_eq[:4].cpu().numpy() - oracle).max())
+    check(eq_err <= IIR_ORACLE_TOL, f"EQ vs float64 sosfilt max|d| {eq_err} > {IIR_ORACLE_TOL}")
+    cpu_err = (y.cpu() - master(x_np, device="cpu")).abs().max().item()
+    check(cpu_err <= SAMPLE_TOL, f"master chain card vs CPU max|d| {cpu_err} > {SAMPLE_TOL}")
+    thresh = 10.0 ** (-1.0 / 20.0)
+    peak = y.abs().max().item()
+    check(peak <= thresh + 1e-6, f"limiter output peak {peak} > {thresh} + 1e-6")
+    # four times louder, so that the limiter engages: the peak is held to the
+    # threshold within the rounding of the envelope's log-domain ramp
+    loud_peak = master(4.0 * x_np, device=dev).abs().max().item()
+    check(thresh - 1e-3 < loud_peak <= thresh + SAMPLE_TOL, f"loud limiter peak {loud_peak} vs {thresh}")
+    chunk3 = 16384
+    xs = torch.nn.functional.pad(torch.from_numpy(x_np).to(dev), (0, -(-t // chunk3) * chunk3 - t))
+    streamed = g3.scan_stream(xs, chunk3)[:, :t]
+    stream_err = (streamed - y).abs().max().item()
+    whole_err = (streamed - whole(x_np, device=dev)).abs().max().item()
+    check(max(stream_err, whole_err) <= SAMPLE_TOL,
+          f"scan_stream vs offline max|d| {stream_err} (compile()), {whole_err} (whole array) > {SAMPLE_TOL}")
+    # one BiquadChain call at T and 4·T: the doubling scan adds two steps,
+    # a product and an add each
+    node = g3.nodes[0]
+    x_dev = torch.from_numpy(x_np).to(dev)
+    n_blk = -(-t // node.block)
+    node.apply(x_dev)  # the plan is on the card before the count
+    iir = [aten_ops(lambda xx=xx: node.apply(xx)) for xx in (x_dev, x_dev.repeat(1, 4))]
+    check(iir[1] - iir[0] == 4 and iir[0] < n_blk // 40,
+          f"BiquadChain aten ops {iir} at {n_blk} and {4 * n_blk} blocks")
+    print(f"phase 15 config 3: master_chain_graph({MASTER_RATE}).compile() on {MASTER_BATCH} x {t} -> "
+          f"{tuple(y.shape)}, finite; EQ on 4 rows vs float64 sosfilt max|d| {eq_err:.3e} (tol {IIR_ORACLE_TOL}); "
+          f"card vs CPU {cpu_err:.3e}, scan_stream in {chunk3}-sample chunks vs compile() {stream_err:.3e} and vs "
+          f"the whole-array chain {whole_err:.3e} (tol {SAMPLE_TOL}); limiter peak {peak:.7f}, x4 louder "
+          f"{loud_peak:.7f} (threshold {thresh:.7f}); one BiquadChain call: {iir[0]} aten ops at {n_blk} blocks, "
+          f"{iir[1]} at {4 * n_blk} ({card})")
+    del y, y_eq, streamed, xs
+
+    # phase 16: config 5 streamed through log_mel_frontend(eq=...), the melspec kernel
+    eq = eq_bands_default(16000.0)
+    g5 = log_mel_frontend(RATE, 16000, 1024, 256, 128, eq=eq, center=False)
+    plain5 = chain(Resample(RATE, 16000, "kaiser"), BiquadChain(eq), Spectrogram(1024, 256, center=False),
+                   MelProject(n_mels=128), input_rate=RATE)
+    gran = g5.chunk_granularity()
+    chunk5 = gran * max(1, 16384 // gran)
+    x5_np = tone_batch(STREAM_BATCH, SECONDS, RATE, SEED)
+    n5 = x5_np.shape[-1] // chunk5
+    x5 = torch.from_numpy(x5_np[:, : n5 * chunk5]).to(dev)
+    del x5_np
+    lat5 = g5.stream_latency(chunk5)
+    frames5 = n5 * g5.chunk_lens(chunk5)[-1]
+    melspec.COUNT.launches = 0
+    y5 = g5.scan_stream(x5, chunk5)
+    torch.cuda.synchronize()
+    launches5 = melspec.COUNT.launches
+    check(launches5 == n5, f"config 5: melspec launched {launches5} times for {n5} chunks")
+    check(tuple(y5.shape) == (STREAM_BATCH, frames5, 128), f"config 5 output shape {tuple(y5.shape)}")
+    check(bool(torch.isfinite(y5).all()), "non-finite config 5 log-mel values")
+    err5 = (y5[:, lat5:] - plain5.scan_stream(x5, chunk5)[:, lat5:]).abs().max().item()
+    check(err5 <= SLICE_TOL, f"config 5 vs the plain composition max|d| {err5} > {SLICE_TOL}")
+    print(f"phase 16 config 5: log_mel_frontend(eq=eq_bands_default(16000)) streamed over {STREAM_BATCH} x "
+          f"{x5.shape[-1]} samples in {n5} chunks of {chunk5} -> {tuple(y5.shape)}, finite, melspec launches "
+          f"{launches5} = chunks {n5}; vs the plain composition Resample -> BiquadChain -> Spectrogram -> "
+          f"MelProject from frame {lat5}: max|d| {err5:.3e} (tol {SLICE_TOL})")
+    del y5
+
+    # phase 17: timing. Config 3 through compile(); config 5's kernel path
+    # and plain composition alternated; BiquadChain's share of config 5's
+    # device time: its 31 steps on the resampled chunks against the stream
+    audio3 = MASTER_BATCH * t / MASTER_RATE
+    runs3 = [cuda_ms(lambda: master(x_dev), 3, warmup=1) for _ in range(3)]
+    ms3 = float(np.median(runs3))
+    audio5 = STREAM_BATCH * x5.shape[-1] / RATE
+    times = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
+        g = g5 if name == "kernel" else plain5
+        times[name].append(cuda_ms(lambda g=g: g.scan_stream(x5, chunk5), 3, warmup=1))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    res_node, bq_node = g5.nodes[0], g5.nodes[1]
+    carry = res_node.init_carry((STREAM_BATCH,), chunk5, device=dev)
+    resampled = []
+    for c in range(n5):
+        carry, out = res_node.step(carry, x5[:, c * chunk5 : (c + 1) * chunk5])
+        resampled.append(out)
+
+    def bq_steps():
+        s = bq_node.init_carry((STREAM_BATCH,), resampled[0].shape[-1], device=dev)
+        for c in resampled:
+            s, _ = bq_node.step(s, c)
+
+    bq_t = device_ms(bq_steps, 1)
+    all_t = device_ms(lambda: g5.scan_stream(x5, chunk5), 1)
+    print(f"phase 17 timing ({card}): config 3 master chain {audio3:.1f} audio-s per run, {ms3:.3f} ms = "
+          f"{audio3 / ms3 * 1e3:.0f} audio-s/s (runs, ms: {json.dumps(runs3)}); config 5 {audio5:.1f} audio-s per "
+          f"run, kernel path {med['kernel']:.2f} ms = {audio5 / med['kernel'] * 1e3:.0f} audio-s/s, plain "
+          f"composition {med['plain']:.2f} ms = {audio5 / med['plain'] * 1e3:.0f} audio-s/s (runs, ms: "
+          f"{json.dumps(times)}); BiquadChain {timed(bq_t)} of the kernel path's {timed(all_t)} device time: "
+          f"{bq_t[0] / all_t[0]:.1%}; BiquadChain's device events a chunk {bq_t[2] / n5:.1f}")
+    return launches5
 
 
 def main() -> int:
@@ -724,10 +872,13 @@ def main() -> int:
           f"{audio_s / med['xla'] * 1e3:.0f} audio-s/s (runs, ms: {json.dumps(times)}); yin {yin_ms:.3f} ms = "
           f"{audio_s / yin_ms * 1e3:.0f} audio-s/s")
 
+    launches5 = configs_3_and_5(dev, card)
+
     print(json.dumps({"kernels": [
         {
             "name": "melspec", "route": "cuda", "source": "audioflow_torch/csrc/melspec.cu",
             "replaces": "audioflow_tpu/ops/pallas/melspec.py:137", "launches": launches,
+            "launches_config5": launches5,
             "max_abs_err": kernel_err, "ms": k_ms, "ms_readings": k_t[1], "plain_ms": p_ms,
             "bound_ms": ms_bound, "bound_by": ms_by, "library_ms": None, "path": ms_path, "cufft_ms": c_ms,
         },

@@ -438,3 +438,66 @@ def test_viterbi_kernel_rejects_what_it_does_not_take(cuda_device):
         viterbi.pyin_viterbi_forward(ov, ou.cpu(), lk, -5.0, -0.01, -4.6)
     with pytest.raises(ValueError):  # 277 taps at 0.05 semitones
         pyin(_vibrato(0.5), 16000, resolution=0.05, viterbi_impl="pallas")
+
+
+# --- the biquad engine and the dynamics: plain torch on the card -----------
+
+@pytest.mark.parametrize("t_len,lead,with_zi", [(160000, (4,), False), (5120, (3, 2), True), (129, (2,), True),
+                                                (37, (), False), (0, (2,), True)])
+def test_iir_apply_on_card_matches_cpu(cuda_device, t_len, lead, with_zi):
+    """The doubling scan on the card against the same code on the CPU (both
+    fp32, TF32 off; cuBLAS sums in another order)."""
+    from audioflow_torch.models import eq_bands_default
+    from audioflow_torch.ops import biquad
+
+    plan = biquad.make_iir_plan(eq_bands_default(16000.0))
+    rng = np.random.default_rng(t_len)
+    x = torch.from_numpy((0.3 * rng.standard_normal((*lead, t_len))).astype(np.float32))
+    zi = biquad.iir_apply(torch.from_numpy((0.3 * rng.standard_normal((*lead, 300))).astype(np.float32)),
+                          plan)[1] if with_zi else None
+    y, s = biquad.iir_apply(x.to(cuda_device), plan, None if zi is None else zi.to(cuda_device))
+    y_cpu, s_cpu = biquad.iir_apply(x, plan, zi)
+    assert y.device.type == s.device.type == "cuda" and y.shape == y_cpu.shape and s.shape == s_cpu.shape
+    assert (y.cpu() - y_cpu).abs().max().item() <= 1e-5 if t_len else y.numel() == 0
+    assert (s.cpu() - s_cpu).abs().max().item() <= 1e-5
+
+
+def test_dynamics_on_card_match_cpu(cuda_device):
+    from audioflow_torch import ops
+
+    rng = np.random.default_rng(0)
+    x = (0.3 * rng.standard_normal((2, 3, 16000))).astype(np.float32)
+    x[..., 4000:9000] *= 1e-3
+    xc, xg = torch.from_numpy(x), torch.from_numpy(x).to(cuda_device)
+    for name, fn in {
+        "limiter": lambda z: ops.limiter(z, -6.0), "compressor": lambda z: ops.compressor(z, knee_db=6.0),
+        "noise_gate": lambda z: ops.noise_gate(z, -30.0), "agc": lambda z: ops.agc(z, block=512, gain0=3.0)[0],
+        "preemphasis": ops.preemphasis, "deemphasis": ops.deemphasis, "to_mono": lambda z: ops.to_mono(z, 2),
+        "gain_db": lambda z: ops.gain_db(z, -4.0), "rms_normalize": ops.rms_normalize,
+        "peak_normalize": ops.peak_normalize, "cmvn": lambda z: ops.cmvn(z.reshape(2, 3, 500, 32), True),
+    }.items():
+        got, want = fn(xg), fn(xc)
+        assert got.device.type == "cuda" and got.shape == want.shape, name
+        assert (got.cpu() - want).abs().max().item() <= 1e-5, name
+    assert ops.split_silence(xg[0, 0]) == ops.split_silence(xc[0, 0])
+    assert ops.trim_silence(xg[0, 0])[1] == ops.trim_silence(xc[0, 0])[1]
+
+
+def test_configs_3_and_5_on_card_match_cpu(cuda_device):
+    """Config 3 through Graph.compile() on numpy input, and config 5
+    streamed with one melspec launch per chunk, against the CPU."""
+    from audioflow_torch.models import eq_bands_default, master_chain_graph
+
+    x = _tones((3, 70000))
+    master = master_chain_graph(16000).compile()
+    got, want = master(x), master(x, device="cpu")
+    assert got.device.type == "cuda" and (got.cpu() - want).abs().max().item() <= 1e-5
+    chunk = 14112
+    x = np.random.default_rng(1).standard_normal((4, 3 * chunk)).astype(np.float32)
+    g = log_mel_frontend(44100, 16000, 1024, 256, 128, eq=eq_bands_default(16000.0))
+    before = melspec.COUNT.launches
+    got = g.scan_stream(x, chunk).cpu()
+    assert melspec.COUNT.launches == before + 3
+    want = g.scan_stream(x, chunk, device="cpu")
+    assert got.shape == want.shape == (4, 60, 128)
+    assert (got - want).abs().max().item() <= 1e-3

@@ -15,7 +15,7 @@ from audioflow_tpu import graph as jgraph
 from audioflow_tpu.models import log_mel_frontend as jax_frontend
 from audioflow_torch import graph as tgraph
 from audioflow_torch.errors import AudioError, ConfigError
-from audioflow_torch.models import log_mel_frontend
+from audioflow_torch.models import eq_bands_default, log_mel_frontend
 
 CHUNK = 14112
 LATENCY = 4  # stream_latency(CHUNK) in frames
@@ -121,6 +121,10 @@ def test_graph_errors():
         tgraph.chain(tgraph.MelProject(), input_rate=16000)  # frames node fed samples
     with pytest.raises(AudioError):
         tgraph.chain(tgraph.Resample(48000, 16000), input_rate=44100)
-    with pytest.raises(NotImplementedError):
-        log_mel_frontend(eq=("band",))
+    # eq is a BiquadChain after the resampler now that the IIR engine is
+    # ported; an empty chain is a configuration error, as in the JAX package
+    eq_graph = log_mel_frontend(eq=eq_bands_default(16000.0))
+    assert [type(n).__name__ for n in eq_graph.nodes] == ["Resample", "BiquadChain", "LogMelSpec"]
+    with pytest.raises(AudioError):
+        tgraph.BiquadChain(())
     assert set(tgraph.node_registry()) >= {"Resample", "Spectrogram", "MelProject", "LogMelSpec"}
