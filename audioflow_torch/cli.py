@@ -1,0 +1,304 @@
+"""audioflow CLI of the port — the framework's command surface on the card.
+
+Mirrors ``audioflow_tpu/cli.py`` for the subcommands ported so far:
+
+  devices            device enumeration (the CUDA cards, or the CPU)
+  info               version/platform info
+  config show|path|set  config inspection/persistence
+  run                offline graph over audio files -> sink   (the DSP path)
+
+``run`` puts its batches on ``--device`` ("cuda" unless given; without a
+card it fails with DEVICE_NOT_FOUND rather than carry on on the CPU). Its
+output is the JAX CLI's JSON line, ``{"output": ..., **RunMetrics}``.
+
+Usage: python -m audioflow_torch.cli <command> [options]
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob as _glob
+import json
+import os
+import sys
+
+from . import __version__
+from .config import ConfigManager, default_config_path, graph_from_spec
+from .errors import AudioFlowError
+from .obs import StatsFile, get_logger, setup_logging
+from .sinks import auto_sink
+
+_log = get_logger("cli")
+
+# the JAX CLI's graph names; _build_graph builds those whose nodes are ported
+_GRAPHS = (
+    "logmel", "stft", "eq", "master", "vad", "wire", "fbank", "kws",
+    "deltafbank", "denoise", "features", "chroma", "cqt", "cqtroundtrip",
+    "onset", "beats", "contrast", "tonnetz",
+)
+
+
+def _build_graph(name: str, input_rate: int, cfg):
+    from .models import (
+        eq_chain_graph,
+        kaldi_fbank_frontend,
+        log_mel_frontend,
+        master_chain_graph,
+        stft_magnitude_graph,
+    )
+
+    a = cfg.audio
+    if name == "logmel":
+        return log_mel_frontend(input_rate, a.target_rate, a.n_fft, a.hop, a.n_mels, a.resample_mode)
+    if name == "stft":
+        return stft_magnitude_graph(input_rate, a.n_fft, a.hop)
+    if name == "eq":
+        return eq_chain_graph(input_rate)
+    if name == "master":
+        return master_chain_graph(input_rate)
+    if name == "fbank":
+        return kaldi_fbank_frontend(input_rate, n_mels=a.n_mels)
+    if name in _GRAPHS:
+        raise SystemExit(f"graph {name!r} is not yet ported to audioflow_torch")
+    raise SystemExit(f"unknown graph {name!r}; known: {_GRAPHS}")
+
+
+def _expand_inputs(patterns: list[str]) -> list[str]:
+    files: list[str] = []
+    for p in patterns:
+        hits = sorted(_glob.glob(p))
+        files.extend(hits if hits else [p])
+    if not files:
+        raise SystemExit("no input files")
+    return files
+
+
+def cmd_devices(args) -> int:
+    import torch
+
+    if torch.cuda.is_available():
+        rows = [
+            {"id": i, "platform": "gpu", "kind": torch.cuda.get_device_name(i), "process": 0}
+            for i in range(torch.cuda.device_count())
+        ]
+    else:
+        rows = [{"id": 0, "platform": "cpu", "kind": "cpu", "process": 0}]
+    print(json.dumps(rows, indent=None if args.json else 2))
+    return 0
+
+
+def cmd_info(args) -> int:
+    import torch
+
+    cuda = torch.cuda.is_available()
+    info = {
+        "name": "audioflow-torch",
+        "version": __version__,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "backend": "cuda" if cuda else "cpu",
+        "n_devices": torch.cuda.device_count() if cuda else 1,
+        "config_path": str(default_config_path()),
+    }
+    print(json.dumps(info, indent=2))
+    return 0
+
+
+def cmd_config(args) -> int:
+    mgr = ConfigManager(args.file)
+    if args.action == "path":
+        print(mgr.path)
+        return 0
+    mgr.load()
+    if args.action == "show":
+        print(json.dumps(mgr.current().to_dict(), indent=2))
+        return 0
+    if args.action == "set":
+        section, _, key = args.key.partition(".")
+
+        def apply(cfg):
+            obj = getattr(cfg, section, None)
+            if obj is None or not hasattr(obj, key):
+                raise SystemExit(f"unknown config key {args.key!r}")
+            cur = getattr(obj, key)
+            typ = type(cur) if cur is not None else str
+            val = typ(args.value) if typ is not bool else args.value.lower() in ("1", "true", "yes")
+            setattr(obj, key, val)
+
+        mgr.update(apply)
+        mgr.save()
+        print(f"saved {args.key} to {mgr.path}")
+        return 0
+    raise SystemExit(f"unknown config action {args.action}")
+
+
+def _load_batch(files, pad_multiple):
+    from .io import decode_batch
+
+    batch = decode_batch(files, pad_multiple=pad_multiple)
+    if not batch.valid.any():
+        raise SystemExit("all input files failed to decode")
+    bad = [str(p) for p, v in zip(batch.paths, batch.valid) if not v]
+    if bad:
+        _log.warning("failed lanes (masked, not fatal): %s", bad)
+    return batch
+
+
+def _probe_head(path):
+    """The WAV header of ``path``: fmt/data chunks usually sit in the first
+    4 KB, but LIST/bext metadata can push them far deeper — grow the head
+    until the header parses (full read as the last resort)."""
+    from .io import wav
+
+    for head in (4096, 1 << 16, None):
+        with open(path, "rb") as fh:
+            buf = fh.read(head) if head else fh.read()
+        try:
+            return wav.probe(buf, truncated=True)
+        except Exception:
+            if head is None:
+                raise
+    raise AssertionError  # unreachable
+
+
+def _graph_for(args, input_rate, cfg):
+    if args.spec:
+        with open(args.spec) as f:
+            return graph_from_spec(json.load(f))
+    return _build_graph(args.graph, input_rate, cfg)
+
+
+def cmd_run(args) -> int:
+    from .obs import RunMetrics, Timer
+    from .obs.metrics import sync
+    from .utils import as_tensor, resolve_device, round_up
+
+    if args.sharded:
+        raise SystemExit("--sharded is not ported to audioflow_torch yet; the port runs on one card")
+    device = resolve_device(args.device)
+    cfg = ConfigManager(args.config).load() if args.config else ConfigManager().current()
+    files = _expand_inputs(args.input)
+
+    def _finish(sink, metrics):
+        res = sink.close()
+        stats = StatsFile(args.stats) if args.stats else StatsFile()
+        stats.record_run(metrics.audio_seconds)
+        stats.save()
+        out_name = str(res) if isinstance(res, (str, os.PathLike)) else "array"
+        print(json.dumps({"output": out_name, **metrics.to_dict()}))
+
+    if args.batch_size:
+        # multi-batch pipelined runner: per-lane masking handles bad files
+        # and wrong rates, so no up-front whole-input decode is needed —
+        # just probe headers for the stride and the input rate
+        from .io import BatchLoader
+        from .runner import run_batches
+
+        max_frames, rate_votes = 1, {}
+        for f in files:
+            try:
+                size = os.path.getsize(f)
+                info = _probe_head(f)
+            except Exception:
+                continue
+            # clamp the declared size against the actual file size: streaming
+            # encoders often leave 0xFFFFFFFF placeholders that would explode
+            # the staging allocation
+            frame_bytes = max(1, info.channels * (info.bits // 8))
+            n = min(info.n_frames, max(0, size - info.data_offset) // frame_bytes)
+            max_frames = max(max_frames, n)
+            rate_votes[info.sample_rate] = rate_votes.get(info.sample_rate, 0) + 1
+        input_rate = args.input_rate or (
+            max(rate_votes, key=rate_votes.get) if rate_votes else cfg.audio.sample_rate
+        )
+        g = _graph_for(args, input_rate, cfg)
+        stride = round_up(int(max_frames), 1024)
+        sink = auto_sink(args.output, sample_rate=g.output_rate)
+        loader = BatchLoader(files, batch_size=args.batch_size, stride=stride)
+        m = run_batches(g, loader, sinks=[sink], expect_rate=input_rate, device=device)
+        _finish(sink, m)
+        return 0
+
+    batch = _load_batch(files, pad_multiple=1024)
+    rates = set(batch.rates[batch.valid].tolist())
+    if len(rates) > 1:
+        raise SystemExit(
+            f"mixed sample rates in batch: {sorted(rates)} "
+            "(use --batch-size with --input-rate to mask off-rate lanes)"
+        )
+    input_rate = args.input_rate or (rates.pop() if rates else cfg.audio.sample_rate)
+    g = _graph_for(args, input_rate, cfg)
+
+    fn = g.compile()
+    x = as_tensor(batch.samples, device)
+    with Timer() as tc:  # first call: kernel builds at first use
+        sync(fn(x))
+    with Timer() as tr:
+        out = fn(x)
+        sync(out)
+    host = out.cpu().numpy()[: len(files)]
+
+    m = RunMetrics(
+        audio_seconds=batch.audio_seconds,
+        wall_seconds=tr.elapsed,
+        compile_seconds=tc.elapsed,
+        files=len(files),
+        failed_files=int((~batch.valid).sum()),
+        batches=1,
+        n_devices=1,
+    )
+    sink = auto_sink(args.output, sample_rate=g.output_rate)
+    sink.write(host)
+    _finish(sink, m)
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(prog="audioflow", description=__doc__.split("\n")[0])
+    p.add_argument("--log-level", default="info")
+    p.add_argument(
+        "--precision",
+        choices=["highest", "high", "default"],
+        help="accepted for the JAX CLI's sake: the port computes every "
+        "product in full fp32 with TF32 off, whatever the name",
+    )
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    d = sub.add_parser("devices", help="list compute devices")
+    d.add_argument("--json", action="store_true")
+    d.set_defaults(fn=cmd_devices)
+
+    i = sub.add_parser("info", help="framework/platform info")
+    i.set_defaults(fn=cmd_info)
+
+    c = sub.add_parser("config", help="show/set/persist config")
+    c.add_argument("action", choices=["show", "set", "path"])
+    c.add_argument("key", nargs="?")
+    c.add_argument("value", nargs="?")
+    c.add_argument("--file")
+    c.set_defaults(fn=cmd_config)
+
+    r = sub.add_parser("run", help="run a graph over audio files")
+    r.add_argument("--input", "-i", nargs="+", required=True)
+    r.add_argument("--output", "-o")
+    r.add_argument("--graph", "-g", default="logmel", choices=_GRAPHS)
+    r.add_argument("--spec", help="JSON GraphSpec file (overrides --graph)")
+    r.add_argument("--input-rate", type=int)
+    r.add_argument("--batch-size", type=int, default=0, help="pipeline files in batches of this size")
+    r.add_argument("--sharded", action="store_true", help="not ported yet: exits with an error")
+    r.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+    r.add_argument("--config")
+    r.add_argument("--stats")
+    r.set_defaults(fn=cmd_run)
+
+    args = p.parse_args(argv)
+    setup_logging(args.log_level)
+    try:
+        return args.fn(args)
+    except AudioFlowError as e:
+        _log.error("%s (%s, %s)", e.message, e.code.value, e.strategy.value)
+        return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,6 +17,7 @@ from .nodes import (
     Node,
     NoiseGate,
     PeakNormalize,
+    PhaseVocoderStretch,
     PitchShift,
     Power,
     Preemphasis,
@@ -34,7 +35,8 @@ from .nodes import (
 
 __all__ = [
     "Agc", "BiquadChain", "Cmvn", "Compressor", "Gain", "Graph", "GriffinLim", "Istft", "Limiter", "LogMelSpec",
-    "Magnitude", "MelProject", "Mfcc", "Node", "NoiseGate", "PeakNormalize", "PitchShift", "Power", "Preemphasis",
+    "Magnitude", "MelProject", "Mfcc", "Node", "NoiseGate", "PeakNormalize", "PhaseVocoderStretch",
+    "PitchShift", "Power", "Preemphasis",
     "Pyin", "Resample", "RmsNormalize", "Spectrogram", "Stft", "TimeStretch", "ToMono", "Yin", "chain",
     "node_registry", "register_node",
 ]

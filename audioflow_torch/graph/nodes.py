@@ -16,6 +16,7 @@ Data domains: "samples" (PCM [..., T]), "frames" (spectral [..., T, F]),
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -28,7 +29,13 @@ from ..ops.framing import overlap_add
 from ..ops.griffinlim import griffin_lim
 from ..ops.kernels.melspec import mel_spectrogram
 from ..ops.mel import apply_mel, cached_filterbank, log_mel, mfcc
-from ..ops.phase_vocoder import pitch_shift, time_stretch
+from ..ops.phase_vocoder import (
+    cumulative_phasor,
+    increment_phasors,
+    phase_vocoder,
+    pitch_shift,
+    time_stretch,
+)
 from ..ops.pitch import pyin, yin_voicing
 from ..ops.resample import (
     make_stream_plan,
@@ -583,6 +590,118 @@ class TimeStretch(Node):
 
     def apply(self, x):
         return time_stretch(x, self.rate, self.n_fft, self.hop)
+
+
+@register_node
+@dataclass(frozen=True)
+class PhaseVocoderStretch(Node):
+    """Streaming phase-vocoder time stretch: complex frames -> complex frames.
+
+    ``rate = rate_num/rate_den`` (> 1 speeds up). Streaming carries the
+    previous analysis frames (for fractional interpolation across chunk
+    boundaries) and the accumulated synthesis phasor, so chunk outputs are
+    phase-continuous. Unlike the other nodes, the streamed output is NOT
+    bit-equal to the offline :func:`ops.phase_vocoder` — phase accumulation
+    starts from the zero-prehistory preroll rather than the first real frame
+    (a constant per-bin phase rotation; magnitudes match and resynthesis is
+    click-free), as in the JAX package. Compose as Stft(center=False) ->
+    PhaseVocoderStretch -> Istft(center=False) for streaming tempo change.
+    """
+
+    rate_num: int = 5
+    rate_den: int = 4
+    hop: int = 256
+    n_fft: int = 1024
+
+    domain_in = "frames"
+    domain_out = "frames"
+    # phase accumulation is seeded from the incoming stream's first frames;
+    # zeroed warmup frames would re-seed it from a degenerate zero-magnitude
+    # frame instead of the preroll
+    warmup_passthrough = True
+
+    def __post_init__(self):
+        if self.rate_num <= 0 or self.rate_den <= 0:
+            raise AudioError("rate must be positive", code=ErrorCode.CONFIG_VALIDATION_ERROR)
+        g = math.gcd(self.rate_num, self.rate_den)
+        object.__setattr__(self, "rate_num", self.rate_num // g)
+        object.__setattr__(self, "rate_den", self.rate_den // g)
+
+    def apply(self, x):
+        return phase_vocoder(x, self.rate_num / self.rate_den, self.hop, self.n_fft)
+
+    # --- streaming geometry: m input frames -> m*den/num output frames
+    def chunk_multiple(self):
+        return self.rate_num
+
+    def out_len(self, n_in):
+        return n_in * self.rate_den // self.rate_num
+
+    def latency(self, n_in):
+        # one-frame interpolation lookahead, expressed in output frames
+        return -(-self.rate_den // self.rate_num)
+
+    @property
+    def _history(self) -> int:
+        """Carried analysis frames: enough that delayed outputs never read
+        before the buffer start (s_rel >= 0 for the first output)."""
+        p, q = self.rate_num, self.rate_den
+        n0 = -(-q // p)
+        return max(1, -(-(n0 * p) // q))
+
+    def _plan(self, m):
+        """Static gather plan: buffer = [h history frames] + m new frames;
+        output u (local) is global j = k*mo + u - n0, analyzing
+        s_rel = (u - n0)*p/q + h relative to the buffer start."""
+        p, q = self.rate_num, self.rate_den
+        mo = m * q // p
+        n0 = -(-q // p)
+        h = self._history
+        u = np.arange(mo)
+        s_rel = (u - n0) * p / q + h
+        lo = np.floor(s_rel).astype(np.int64)
+        frac = (s_rel - lo).astype(np.float32)
+        if lo.min() < 0 or lo.max() + 1 > m + h - 1:
+            # an out-of-range gather would smear time; fail loudly instead
+            raise AudioError(
+                f"phase-vocoder plan out of bounds: lo in [{lo.min()}, {lo.max()}], "
+                f"buffer m+h = {m + h}",
+                code=ErrorCode.SHAPE_MISMATCH,
+            )
+        return mo, lo, lo + 1, frac
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        n_bins = self.n_fft // 2 + 1
+        return (
+            torch.zeros((*lead_shape, self._history, n_bins), dtype=torch.complex64, device=device),
+            # accumulated phase phasor
+            torch.ones((*lead_shape, n_bins), dtype=torch.complex64, device=device),
+        )
+
+    def step(self, carry, spec):
+        # the offline vocoder's phasor math: exp(i*increment) ==
+        # s_hi*conj(s_lo)/(|s_hi||s_lo|), accumulated as a cumulative complex
+        # product — no trig on the hot path
+        prev, acc = carry
+        mo, lo, hi, frac = self._plan(spec.shape[-2])
+        buf = torch.cat([prev, spec], dim=-2)  # [.., h+m, bins]
+        mag_in = buf.abs()
+        lo_t = torch.from_numpy(lo).to(buf.device)
+        hi_t = torch.from_numpy(hi).to(buf.device)
+        s_lo, s_hi = buf[..., lo_t, :], buf[..., hi_t, :]
+        m_lo, m_hi = mag_in[..., lo_t, :], mag_in[..., hi_t, :]
+        fr = torch.from_numpy(frac).to(buf.device)[:, None]
+        mag = (1.0 - fr) * m_lo + fr * m_hi
+        u = increment_phasors(s_lo, s_hi, m_lo, m_hi)  # [.., mo, bins]
+        z = acc[..., None, :] * cumulative_phasor(u, axis=-2)
+        out = mag * z
+        # renormalize the carried phasor so |acc| cannot drift over
+        # arbitrarily long streams (each chunk multiplies ~mo unit values)
+        last = z[..., -1, :]
+        last_mag = last.abs()
+        ok = last_mag > 0
+        last = torch.where(ok, last / torch.where(ok, last_mag, 1.0), torch.ones_like(last))
+        return (buf[..., -self._history :, :], last), out
 
 
 @register_node

@@ -22,6 +22,11 @@ def rational_rate(input_rate: int, output_rate: int) -> tuple[int, int]:
     return output_rate // g, input_rate // g
 
 
+def round_up(x: int, multiple: int) -> int:
+    """Round ``x`` up to the nearest multiple."""
+    return -(-x // multiple) * multiple
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -37,10 +42,16 @@ def as_tensor(x, device: torch.device | str | None = None) -> torch.Tensor:
     """
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(device)
+    return torch.tensor(np.asarray(x, dtype=np.float32), device=resolve_device(device))
+
+
+def resolve_device(device: torch.device | str | None = None) -> torch.device:
+    """The device an entry point runs on: "cuda" unless the caller names
+    another. Without a visible card "cuda" raises ``DEVICE_NOT_FOUND``."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise AudioError(
             "no CUDA card is visible; pass device='cpu' to run on the CPU",
             code=ErrorCode.DEVICE_NOT_FOUND,
         )
-    return torch.tensor(np.asarray(x, dtype=np.float32), device=dev)
+    return dev

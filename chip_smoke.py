@@ -1,8 +1,9 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
-Drives the port's ported paths through the hand-written CUDA kernels, and
+Drives the port's ported paths through the hand-written CUDA kernels,
 BASELINE configs 3 and 5 through the biquad engine and the melspec kernel,
-and checks them. The log-mel frontend
+and the file path (decode, staging ring, batch runner, sinks) through
+``audioflow run``, and checks them. The log-mel frontend
 ``log_mel_frontend(44100, 16000, 1024, 256, 128, center=False)`` streamed in
 14,112-sample chunks over a 512 x 10 s tone batch (kernel ``melspec``);
 BASELINE config 4, time-stretch and pitch-shift, offline through
@@ -83,7 +84,25 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
 17. their timing: config 3 through ``compile()``, config 5's kernel path and
     plain composition alternated, and ``BiquadChain``'s share of config 5's
     device time (its 31 steps on the resampled chunks, timed alone), with
-    its device events a chunk under the profiler.
+    its device events a chunk under the profiler;
+18. the native batch decoder: ``native/wavcodec.cpp`` built with ``g++``
+    into ``build/audioflow_torch/`` (the seconds printed), and on the files
+    of phase 19 ``decode_batch`` natively and by numpy bit for bit equal;
+19. the file path of the headline graph through ``audioflow run``, called in
+    the process: 256 mono 16-bit WAV files of 10 s at 44.1 kHz written from
+    the tone batch, plus one corrupt file and one at 48 kHz, run by
+    ``run -g logmel --batch-size 32`` (9 batches through the loader's
+    5-slot pinned staging ring, so slots are refilled): the JSON line's
+    counts (258 files, 2 failed), the native decoder used once a batch,
+    one melspec launch a batch, the ``.npy`` exactly equal to the graph
+    called directly on the decoded samples in the same batches, and the
+    corrupt and 48 kHz lanes all zero out of the runner's masked step;
+20. BASELINE config 5 through ``run --spec``: the port's ``graph_to_spec``
+    of ``log_mel_frontend(..., eq=eq_bands_default(16000))`` run over the
+    same files, exactly equal to the graph called directly;
+21. the file path's timing, printed with no bound: audio-s/s from the run's
+    ``RunMetrics``, host decode, the copy to the card and the graph per
+    batch, and the device busy share of the run under torch.profiler.
 
 Every device time (phases 3, 6, 9, 12) is the median of three readings
 under torch.profiler, printed with the readings and the device events per
@@ -158,6 +177,17 @@ MASTER_BATCH = 64
 MASTER_RATE = 16000
 # BASELINE config 5 (streaming): 256 x 31 chunks of 14,112 at 44.1 kHz (bench.py:132-165)
 STREAM_BATCH = 256
+# the file path (phases 18-21): 256 mono 16-bit WAV files of 10 s at 44.1 kHz
+# from the tone batch, one corrupt file and one at 48 kHz, run in batches of
+# 32: 9 batches through the loader's 5-slot staging ring, so slots are reused
+FILES = 256
+FILE_BATCH = 32
+CORRUPT = "f100_corrupt.wav"
+OFF_RATE = "f200_48k.wav"
+# run output vs the graph called directly on the decoded samples in the same
+# batches: the same graph on the same card at the same shapes, so exactly
+# equal; a copy that read a refilled staging slot would differ by O(1)
+FILE_TOL = 0.0
 # the EQ against the float64 sosfilt oracle: the reference's biquad_chain
 # budget (validate.py:58-70, 417)
 IIR_ORACLE_TOL = 1e-4
@@ -359,6 +389,173 @@ def configs_3_and_5(dev: torch.device, card: str) -> int:
           f"{json.dumps(times)}); BiquadChain {timed(bq_t)} of the kernel path's {timed(all_t)} device time: "
           f"{bq_t[0] / all_t[0]:.1%}; BiquadChain's device events a chunk {bq_t[2] / n5:.1f}")
     return launches5
+
+
+def file_path(dev: torch.device, card: str) -> dict:
+    """Phases 18-21: the file path of the headline graph, host decode ->
+    staging ring -> batch runner -> graph on the card -> sinks, through
+    ``audioflow run``. Returns the numbers for the kernels line."""
+    import contextlib
+    import dataclasses
+    import io
+    import os
+    import tempfile
+
+    from audioflow_torch import cli, runner
+    from audioflow_torch.config import graph_to_spec
+    from audioflow_torch.io import BatchLoader, decode_batch, native, write_wav
+    from audioflow_torch.models import eq_bands_default, log_mel_frontend
+    from audioflow_torch.ops.kernels import melspec
+    from audioflow_torch.profiling import tone_batch
+    from audioflow_torch.sinks import ArraySink
+
+    def run_cli(args: list[str]) -> dict:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(args)
+        check(rc == 0, f"audioflow run exited {rc}: {args}")
+        return json.loads(out.getvalue().strip().splitlines()[-1])
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as tmp:
+        # phase 18: the native decoder, and the files of phase 19
+        x_np = tone_batch(FILES, SECONDS, RATE, SEED)
+        names = [f"f{i:03d}.wav" for i in range(FILES)]
+        for name, row in zip(names, x_np):
+            write_wav(os.path.join(tmp, name), row, RATE)
+        with open(os.path.join(tmp, CORRUPT), "wb") as f:
+            f.write(b"RIFF\x24\x00\x00\x00WAVEfmt \x10\x00\x00\x00truncated")
+        write_wav(os.path.join(tmp, OFF_RATE), tone_batch(1, SECONDS, 48000, SEED + 1)[0], 48000)
+        del x_np
+        files = sorted(os.path.join(tmp, n) for n in os.listdir(tmp))
+        mb = sum(os.path.getsize(f) for f in files) / 1e6
+        t0 = time.perf_counter()
+        check(native.available(), f"native decoder: {native.load_error()}")
+        ready_s = time.perf_counter() - t0
+        built = (f"g++ {native.STATS.build_seconds:.2f} s" if native.STATS.build_seconds is not None
+                 else "already built in build/")
+        stride = 1024 * -(-int(SECONDS * 48000) // 1024)  # the CLI's stride: the longest file, the 48 kHz one
+        nat = decode_batch(files, stride=stride, use_native=True)
+        npy = decode_batch(files, stride=stride, use_native=False)
+        same = all(np.array_equal(getattr(nat, k), getattr(npy, k)) for k in ("samples", "lengths", "rates", "valid"))
+        check(same, "native and numpy batch decoders differ")
+        bad = [os.path.basename(p) for p, v in zip(files, nat.valid) if not v]
+        check(bad == [CORRUPT], f"failed lanes {bad}")
+        del npy
+        print(f"phase 18 native decoder: {native.library_path().name} ({built}), ready in {ready_s:.2f} s; "
+              f"{len(files)} files ({mb:.1f} MB) decoded natively and by numpy into [{len(files)}, {stride}]: "
+              f"bit-equal (samples, lengths, rates, valid); failed lanes {bad}")
+
+        # phase 19: audioflow run -g logmel over the files, in the process
+        glob = os.path.join(tmp, "*.wav")
+        g = log_mel_frontend(RATE, 16000, 1024, 256, 128)
+        batches = -(-len(files) // FILE_BATCH)
+        calls = native.STATS.calls
+        melspec.COUNT.launches = 0
+        line = run_cli(["run", "-i", glob, "-g", "logmel", "--batch-size", str(FILE_BATCH),
+                        "-o", os.path.join(tmp, "logmel.npy"), "--stats", os.path.join(tmp, "stats.json")])
+        launches = melspec.COUNT.launches
+        check(native.STATS.calls - calls == batches, f"native decoder calls {native.STATS.calls - calls}")
+        # one launch a batch, and one for the runner's warm-up call of the first
+        check(launches == batches + 1, f"melspec launched {launches} times for {batches} batches and a warm-up")
+        check((line["files"], line["failed_files"], line["batches"]) == (len(files), 2, batches),
+              f"run line {line}")
+        got = np.load(os.path.join(tmp, "logmel.npy"))
+        ok = nat.valid & (nat.rates == RATE)
+        check(got.shape[0] == int(ok.sum()) == FILES and np.isfinite(got).all(), f"run output {got.shape}")
+
+        def offline(graph):
+            """The graph called directly on the card on the decoded samples, in
+            the run's batches (the tail zero-padded to a full batch), valid
+            lanes kept."""
+            rows = []
+            for b in range(0, len(files), FILE_BATCH):
+                x = np.zeros((FILE_BATCH, stride), np.float32)
+                x[: min(FILE_BATCH, len(files) - b)] = nat.samples[b : b + FILE_BATCH]
+                y = graph.chain(torch.from_numpy(x).to(dev)).cpu().numpy()
+                rows.append(y[: len(files) - b][ok[b : b + FILE_BATCH]])
+            return np.concatenate(rows)
+
+        want = offline(g)
+        err = float(np.abs(got - want).max())
+        check(err <= FILE_TOL, f"run -g logmel vs the graph called directly max|d| {err} > {FILE_TOL}")
+        # the masked lanes, through the runner's own step on their batches
+        loader = BatchLoader(files, FILE_BATCH, stride=stride)
+        zeros = []
+        for batch in loader:
+            out = runner.run_batch(g, batch, stride, FILE_BATCH, RATE, dev)
+            for i, p in enumerate(batch.paths):
+                if os.path.basename(p) in (CORRUPT, OFF_RATE):
+                    zeros.append(bool((out[i] == 0).all()))
+        check(zeros == [True, True], f"masked lanes all zero: {zeros}")
+        print(f"phase 19 run -g logmel --batch-size {FILE_BATCH}: {line['files']} files -> {got.shape}, "
+              f"failed_files {line['failed_files']}, batches {line['batches']} through a ring of "
+              f"{loader.prefetch + 3} slots; native decoder calls {batches}; melspec launches {launches} = "
+              f"batches {batches} + 1 warm-up; vs log_mel_frontend(44100, 16000, 1024, 256, 128) called directly on the "
+              f"decoded samples in the same batches: max|d| {err:.3e} (tol {FILE_TOL}); the corrupt and "
+              f"48 kHz lanes all zero {zeros}")
+        del got, want
+
+        # phase 20: config 5 through --spec
+        g5 = log_mel_frontend(RATE, 16000, 1024, 256, 128, eq=eq_bands_default(16000))
+        spec = os.path.join(tmp, "config5.json")
+        with open(spec, "w") as f:
+            json.dump(dataclasses.asdict(graph_to_spec(g5)), f)
+        melspec.COUNT.launches = 0
+        line5 = run_cli(["run", "-i", glob, "--spec", spec, "--batch-size", str(FILE_BATCH),
+                         "-o", os.path.join(tmp, "config5.npy"), "--stats", os.path.join(tmp, "stats.json")])
+        launches5 = melspec.COUNT.launches
+        check(launches5 == batches + 1, f"config 5: melspec launched {launches5} times for {batches} batches + 1")
+        got5 = np.load(os.path.join(tmp, "config5.npy"))
+        err5 = float(np.abs(got5 - offline(g5)).max())
+        check(got5.shape[0] == FILES and err5 <= FILE_TOL, f"config 5 spec run {got5.shape}: max|d| {err5}")
+        print(f"phase 20 run --spec config5.json ({[type(n).__name__ for n in g5.nodes]}): {line5['files']} files "
+              f"-> {got5.shape}, failed_files {line5['failed_files']}, melspec launches {launches5}; vs the graph "
+              f"called directly: max|d| {err5:.3e} (tol {FILE_TOL})")
+        del got5, nat
+
+        # phase 21: timing (printed, no bound). Host decode of one batch into
+        # a warm staging buffer; the copy to the card (from page-locked memory,
+        # as the runner's ring holds it on the card, and from pageable memory)
+        # and the graph on one batch by CUDA events, whose sum is the device
+        # time of a batch; the file path end to end through run_batches with
+        # its page-locked ring and with a pageable one, alternated
+        buf = np.empty((FILE_BATCH, stride), np.float32)
+        decode_s = [decode_batch(files[:FILE_BATCH], stride=stride, out=buf).decode_seconds for _ in range(3)]
+        decode_ms = float(np.median(decode_s)) * 1e3
+        x_page = torch.from_numpy(buf)
+        x_pin = x_page.pin_memory()
+        copy_ms = cuda_ms(lambda: x_pin.to(dev, non_blocking=True), 5, warmup=1)
+        copy_page_ms = cuda_ms(lambda: x_page.to(dev, non_blocking=True), 5, warmup=1)
+        xd = x_pin.to(dev)
+        vd = torch.ones(FILE_BATCH, dtype=torch.bool, device=dev)
+        graph_ms = cuda_ms(lambda: runner.mask_lanes(g.chain(xd), vd), 5, warmup=1)
+        del xd, x_pin
+        batch_dev_ms = copy_ms + graph_ms
+
+        class PageableLoader(BatchLoader):
+            """The ring in pageable memory on the card too."""
+
+            def batches(self, pin_memory: bool = False):
+                return super().batches(pin_memory=False)
+
+        e2e = {"page-locked": [], "pageable": []}
+        for kind in ("page-locked", "pageable", "pageable", "page-locked", "page-locked", "pageable"):
+            cls = BatchLoader if kind == "page-locked" else PageableLoader
+            m = runner.run_batches(g, cls(files, FILE_BATCH, stride=stride), sinks=[ArraySink()],
+                                   expect_rate=RATE, device=dev)
+            e2e[kind].append(m.realtime_factor)
+        print(f"phase 21 timing ({card}): run -g logmel {line['audio_seconds']:.1f} audio-s in "
+              f"{line['wall_seconds']:.3f} s = {line['realtime_factor']:.0f} audio-s/s (warm-up call of the first "
+              f"batch {line['compile_seconds']:.3f} s, left out); per batch of {FILE_BATCH} x {stride}: host decode "
+              f"{decode_ms:.2f} ms (readings, s: {json.dumps(decode_s)}), copy to the card {copy_ms:.2f} ms from "
+              f"page-locked memory ({copy_page_ms:.2f} ms pageable), graph on the card {graph_ms:.2f} ms; device "
+              f"time a batch (copy + graph, CUDA events) {batch_dev_ms:.2f} ms against {decode_ms:.2f} ms of "
+              f"decode: {'decode' if decode_ms > batch_dev_ms else 'the card'} sets the pace; device busy share "
+              f"of the run {line['batches'] * batch_dev_ms / 1e3 / line['wall_seconds']:.1%} (batches x device "
+              f"time a batch / wall); run_batches end to end, audio-s/s, page-locked ring "
+              f"{json.dumps([round(r, 1) for r in e2e['page-locked']])}, pageable ring "
+              f"{json.dumps([round(r, 1) for r in e2e['pageable']])}")
+    return {"launches_file_path": launches, "launches_config5_spec": launches5}
 
 
 def main() -> int:
@@ -873,12 +1070,13 @@ def main() -> int:
           f"{audio_s / yin_ms * 1e3:.0f} audio-s/s")
 
     launches5 = configs_3_and_5(dev, card)
+    files = file_path(dev, card)
 
     print(json.dumps({"kernels": [
         {
             "name": "melspec", "route": "cuda", "source": "audioflow_torch/csrc/melspec.cu",
             "replaces": "audioflow_tpu/ops/pallas/melspec.py:137", "launches": launches,
-            "launches_config5": launches5,
+            "launches_config5": launches5, **files,
             "max_abs_err": kernel_err, "ms": k_ms, "ms_readings": k_t[1], "plain_ms": p_ms,
             "bound_ms": ms_bound, "bound_by": ms_by, "library_ms": None, "path": ms_path, "cufft_ms": c_ms,
         },
