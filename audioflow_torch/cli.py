@@ -6,10 +6,16 @@ Mirrors ``audioflow_tpu/cli.py`` for the subcommands ported so far:
   info               version/platform info
   config show|path|set  config inspection/persistence
   run                offline graph over audio files -> sink   (the DSP path)
+  stream             streaming session over a file, npy/wire egress
+  key                API-key storage (env or secrets file)
+  egress             a file through the dictation path to a WebSocket ASR endpoint
+  vad                VAD segments of a file
+  validate           numerics against float64 oracles, the JAX package's budgets
 
-``run`` puts its batches on ``--device`` ("cuda" unless given; without a
-card it fails with DEVICE_NOT_FOUND rather than carry on on the CPU). Its
-output is the JAX CLI's JSON line, ``{"output": ..., **RunMetrics}``.
+``run``, ``stream``, ``egress``, ``vad`` and ``validate`` compute on
+``--device`` ("cuda" unless given; without a card they fail with
+DEVICE_NOT_FOUND rather than carry on on the CPU). Their output is the JAX
+CLI's JSON.
 
 Usage: python -m audioflow_torch.cli <command> [options]
 """
@@ -21,6 +27,8 @@ import glob as _glob
 import json
 import os
 import sys
+
+import numpy as np
 
 from . import __version__
 from .config import ConfigManager, default_config_path, graph_from_spec
@@ -38,24 +46,30 @@ _GRAPHS = (
 )
 
 
-def _build_graph(name: str, input_rate: int, cfg):
+def _build_graph(name: str, input_rate: int, cfg, streaming: bool = False):
     from .models import (
         eq_chain_graph,
         kaldi_fbank_frontend,
         log_mel_frontend,
         master_chain_graph,
         stft_magnitude_graph,
+        vad_graph,
+        wire_egress_graph,
     )
 
     a = cfg.audio
     if name == "logmel":
         return log_mel_frontend(input_rate, a.target_rate, a.n_fft, a.hop, a.n_mels, a.resample_mode)
     if name == "stft":
-        return stft_magnitude_graph(input_rate, a.n_fft, a.hop)
+        return stft_magnitude_graph(input_rate, a.n_fft, a.hop, center=not streaming)
     if name == "eq":
         return eq_chain_graph(input_rate)
     if name == "master":
         return master_chain_graph(input_rate)
+    if name == "vad":
+        return vad_graph(input_rate, a.chunk_ms)
+    if name == "wire":
+        return wire_egress_graph(input_rate, a.target_rate)
     if name == "fbank":
         return kaldi_fbank_frontend(input_rate, n_mels=a.n_mels)
     if name in _GRAPHS:
@@ -168,6 +182,10 @@ def _graph_for(args, input_rate, cfg):
     return _build_graph(args.graph, input_rate, cfg)
 
 
+def _user_config(args):
+    return ConfigManager(args.config).load() if args.config else ConfigManager().current()
+
+
 def cmd_run(args) -> int:
     from .obs import RunMetrics, Timer
     from .obs.metrics import sync
@@ -176,7 +194,7 @@ def cmd_run(args) -> int:
     if args.sharded:
         raise SystemExit("--sharded is not ported to audioflow_torch yet; the port runs on one card")
     device = resolve_device(args.device)
-    cfg = ConfigManager(args.config).load() if args.config else ConfigManager().current()
+    cfg = _user_config(args)
     files = _expand_inputs(args.input)
 
     def _finish(sink, metrics):
@@ -253,6 +271,164 @@ def cmd_run(args) -> int:
     return 0
 
 
+def _read_mono(path):
+    from .io import read_audio
+
+    data, rate = read_audio(path)
+    if data.ndim == 2:
+        data = data.mean(axis=1).astype(np.float32)
+    return data, rate
+
+
+def cmd_stream(args) -> int:
+    from .session import StreamSession
+
+    cfg = _user_config(args)
+    data, rate = _read_mono(args.input)
+    g = _build_graph(args.graph, rate, cfg, streaming=True)
+    sinks = [auto_sink(args.output, sample_rate=g.output_rate)] if args.output else []
+    # a file source outruns the card: push 8-chunk blocks, which the
+    # session's multi-chunk drain steps as one block each
+    gran = g.chunk_granularity()
+    chunk = args.chunk or gran * max(1, 4096 // gran)
+    sess = StreamSession(g, chunk_in=chunk, sinks=sinks, ring_capacity=17 * chunk, device=args.device)
+    with sess:
+        step = args.push_size or 8 * sess.chunk_in
+        for i in range(0, len(data), step):
+            sess.push(data[i : i + step])
+        sess.flush()
+        results = sess.poll_all()
+    print(
+        json.dumps(
+            {
+                "chunks": len(results),
+                "latency": g.stream_latency(sess.chunk_in),
+                "audio_seconds": len(data) / rate,
+                "output": str(args.output) if args.output else None,
+            }
+        )
+    )
+    return 0
+
+
+def cmd_key(args) -> int:
+    """API-key storage: set, get (the environment wins) and delete."""
+    from .config import EnvKeyStorage, FileKeyStorage
+    from .errors import ConfigError
+
+    file_store = FileKeyStorage(args.file) if args.file else FileKeyStorage()
+    if args.action == "set":
+        if not args.value:
+            raise SystemExit("key set needs a value")
+        # env vars die with this process; a persistent set always uses the file
+        file_store.store(args.account, args.value)
+        print(f"stored key for {args.account} in {file_store.path}")
+    elif args.action == "get":
+        try:
+            print(EnvKeyStorage().retrieve(args.account))
+        except ConfigError:
+            print(file_store.retrieve(args.account))
+    elif args.action == "delete":
+        file_store.delete(args.account)
+        print(f"deleted key for {args.account}")
+    return 0
+
+
+def cmd_egress(args) -> int:
+    """The dictation egress end to end: a file -> (VAD gate) -> 16 kHz
+    resample -> i16 wire chunks -> WebSocket, printing transcript events as
+    they arrive, through a ScribeSession (receive thread, keepalive
+    pings, reconnect with session resume). The graph runs on ``--device``."""
+    from .graph import Resample, VadGate, chain
+    from .session import ScribeConfig, ScribeSession
+    from .sinks import WebSocketConfig
+
+    data, rate = _read_mono(args.input)
+    nodes = []
+    if args.vad_gate:
+        nodes.append(VadGate(frame_len=rate * 20 // 1000))
+    if rate != 16000:
+        nodes.append(Resample(rate, 16000, "cubic"))
+    g = chain(*nodes, input_rate=rate) if nodes else None
+
+    cfg = _user_config(args)
+    api_key = args.api_key or ""
+    if not api_key and cfg.api.api_key_env:
+        api_key = os.environ.get(cfg.api.api_key_env, "")
+    session = ScribeSession(
+        ScribeConfig(
+            model_id=cfg.api.model_id,
+            language_code=cfg.api.language_code,
+            ws=WebSocketConfig(
+                url=args.url,
+                api_key=api_key,
+                connect_timeout_s=cfg.api.connect_timeout_s,
+                reconnect_delay_ms=cfg.api.reconnect_delay_ms,
+                max_reconnect_attempts=cfg.api.max_reconnect_attempts,
+            ),
+        )
+    )
+    pcm = g.compile()(data, device=args.device).cpu().numpy() if g else data
+    chunk = args.chunk or 16000 // 5  # 200 ms
+    results = []
+
+    def print_new():
+        while (out := session.poll()) is not None:
+            results.append(out)
+            print(json.dumps(out))
+
+    with session:
+        for i in range(0, len(pcm), chunk):
+            session.send_audio(pcm[i : i + chunk], wait_reconnect_s=args.receive_timeout)
+            print_new()  # results arrive on the receive thread; show them as they come
+        if not any(r["is_final"] for r in results):
+            for out in session.drain(timeout=args.receive_timeout):
+                results.append(out)
+                print(json.dumps(out))
+    print(json.dumps({"chunks_sent": session.chunks_sent, "results": len(results)}))
+    return 0
+
+
+def cmd_vad(args) -> int:
+    from .models import vad_graph
+
+    data, rate = _read_mono(args.input)
+    # --level (a named preset) wins over --threshold-db; with neither, the
+    # config's audio.vad_level applies
+    level = args.level
+    if level is None and args.threshold_db is None:
+        level = _user_config(args).audio.vad_level
+    g = vad_graph(
+        rate,
+        threshold_db=args.threshold_db if args.threshold_db is not None else -50.0,
+        level=level or "",
+    )
+    states = g.compile()(np.asarray(data, np.float32), device=args.device).cpu().numpy()
+    frame_s = g.nodes[0].frame_len / rate
+    segments = []
+    start = None
+    for i, s in enumerate(states):
+        if s == 1 and start is None:
+            start = i
+        elif s != 1 and start is not None:
+            segments.append({"start_s": round(start * frame_s, 3), "end_s": round(i * frame_s, 3)})
+            start = None
+    if start is not None:
+        segments.append({"start_s": round(start * frame_s, 3), "end_s": round(len(states) * frame_s, 3)})
+    print(json.dumps({"frames": len(states), "speech_segments": segments}))
+    return 0
+
+
+def cmd_validate(args) -> int:
+    from .validate import run_validation
+
+    report = run_validation(device=args.device)
+    print(json.dumps(report, indent=2))
+    # pass also needs vad_state_mismatches == 0 and quantize_i16 == 0: gate
+    # on the whole verdict, not on max_abs_err alone
+    return 0 if report["pass"] else 1
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="audioflow", description=__doc__.split("\n")[0])
     p.add_argument("--log-level", default="info")
@@ -290,6 +466,51 @@ def main(argv: list[str] | None = None) -> int:
     r.add_argument("--config")
     r.add_argument("--stats")
     r.set_defaults(fn=cmd_run)
+
+    s = sub.add_parser("stream", help="streaming session over one audio file")
+    s.add_argument("--input", "-i", required=True)
+    s.add_argument("--output", "-o")
+    s.add_argument("--graph", "-g", default="logmel", choices=_GRAPHS)
+    s.add_argument("--chunk", type=int)
+    s.add_argument("--push-size", type=int)
+    s.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+    s.add_argument("--config")
+    s.set_defaults(fn=cmd_stream)
+
+    k = sub.add_parser("key", help="API-key storage (env or secrets file)")
+    k.add_argument("action", choices=["set", "get", "delete"])
+    k.add_argument("account", nargs="?", default="elevenlabs")
+    k.add_argument("value", nargs="?")
+    k.add_argument("--file", help="use a secrets file instead of env vars")
+    k.set_defaults(fn=cmd_key)
+
+    e = sub.add_parser("egress", help="stream an audio file to a WebSocket ASR endpoint")
+    e.add_argument("--input", "-i", required=True)
+    e.add_argument("--url", required=True)
+    e.add_argument("--api-key")
+    e.add_argument("--chunk", type=int, default=0, help="samples per wire chunk")
+    e.add_argument("--vad-gate", action="store_true", help="mute non-speech before sending")
+    e.add_argument("--receive-timeout", type=float, default=5.0)
+    e.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+    e.add_argument("--config")
+    e.set_defaults(fn=cmd_egress)
+
+    v = sub.add_parser("vad", help="voice-activity segments of an audio file")
+    v.add_argument("--input", "-i", required=True)
+    v.add_argument("--threshold-db", type=float, default=None)
+    v.add_argument(
+        "--level",
+        choices=["aggressive", "balanced", "relaxed"],
+        default=None,
+        help="named sensitivity preset (overrides --threshold-db; default: config audio.vad_level)",
+    )
+    v.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+    v.add_argument("--config")
+    v.set_defaults(fn=cmd_vad)
+
+    val = sub.add_parser("validate", help="numerics validation report")
+    val.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+    val.set_defaults(fn=cmd_validate)
 
     args = p.parse_args(argv)
     setup_logging(args.log_level)

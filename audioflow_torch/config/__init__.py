@@ -5,7 +5,7 @@ Mirrors ``audioflow_tpu/config``: `ConfigManager` keeps a hot-swappable
 snapshot with ``update(closure)`` read-modify-write; `UserConfig` is a
 dataclass tree persisted as TOML, with the same keys and defaults; secrets
 come from env vars or a 0600 file. Graphs serialize through the port's node
-registry. ``fork_to_spec``/``fork_from_spec`` come with the port's ``Fork``.
+registry, forks through ``fork_to_spec``/``fork_from_spec``.
 """
 
 from .manager import ConfigManager, default_config_path
@@ -16,6 +16,8 @@ from .schema import (
     ObsConfig,
     SessionConfig,
     UserConfig,
+    fork_from_spec,
+    fork_to_spec,
     graph_from_spec,
     graph_to_spec,
 )
@@ -37,6 +39,8 @@ __all__ = [
     "default_config_path",
     "dumps_toml",
     "loads_toml",
+    "fork_from_spec",
+    "fork_to_spec",
     "graph_from_spec",
     "graph_to_spec",
 ]

@@ -184,3 +184,27 @@ def graph_from_spec(spec: GraphSpec | dict) -> Graph:
                 f"bad fields for node {tname}: {e}", code=ErrorCode.CONFIG_VALIDATION_ERROR
             ) from None
     return Graph(tuple(nodes), input_rate=spec.input_rate, name=spec.name)
+
+
+def fork_to_spec(f) -> dict:
+    """A :class:`~audioflow_torch.graph.Fork` as a JSON-ready dict:
+    ``{"name", "trunk": GraphSpec dict, "branches": {name: GraphSpec dict}}``."""
+    return {
+        "name": f.name,
+        "trunk": dataclasses.asdict(graph_to_spec(f.trunk)),
+        "branches": {k: dataclasses.asdict(graph_to_spec(g)) for k, g in f.branches},
+    }
+
+
+def fork_from_spec(spec: dict):
+    """The Fork of :func:`fork_to_spec`'s dict (the JAX package's too)."""
+    from ..graph import Fork
+
+    missing = {"trunk", "branches"} - set(spec)
+    if missing:
+        raise ConfigError(
+            f"fork spec missing sections: {sorted(missing)}", code=ErrorCode.CONFIG_VALIDATION_ERROR
+        )
+    trunk = graph_from_spec(spec["trunk"])
+    branches = tuple((k, graph_from_spec(v)) for k, v in spec["branches"].items())
+    return Fork(trunk, branches, name=spec.get("name", "fork"))

@@ -1,4 +1,4 @@
-"""Carry stream state between the JAX package and the port.
+"""Carry stream state and session snapshots between the JAX package and the port.
 
 For this system the "weights" are host designs (plans, banks, filterbanks),
 which both packages rebuild bit for bit from the same numpy code; what a
@@ -8,8 +8,16 @@ checkpoint format (``audioflow_tpu/graph/nodes.py``). The port's state has
 the same structure with tensors for arrays and a plain int for ``k``. A
 node's carry is an array (the resampler's history, the IIR state, a
 scalar envelope or gain per row), a tuple of them (Preemphasis' sample and
-bool started flag, Istft's overlap-add and window-square tails) or None;
-each leaf keeps its dtype both ways.
+bool started flag, Istft's overlap-add and window-square tails), a
+:class:`~audioflow_torch.ops.vad.VadCarry` (``Vad``, ``VadGate``), the
+branch states of a ``Mix``, or None; each leaf keeps its dtype both ways. A
+``Fork``'s state is ``(trunk_state, {name: branch_state}, {name: pending})``.
+
+A session snapshot (``StreamSession.snapshot``) stores the state's leaves as
+``leaf_i`` in the order of ``jax.tree_util.tree_flatten``: None dropped,
+lists, tuples and named tuples in field order, dicts by sorted key, ``k`` an
+int32 leaf. :func:`state_leaves` and :func:`state_from_leaves` give and take
+that order, so a snapshot of either package restores in the other.
 """
 
 from __future__ import annotations
@@ -17,33 +25,98 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.vad import VadCarry
 
-def _map(fn, tree):
-    """``fn`` on every array leaf of nested lists and tuples; None stays None."""
+
+def _is_graph_state(tree) -> bool:
+    """``(carries, pendings, k)``: the one place an int ``k`` lives."""
+    return isinstance(tree, tuple) and len(tree) == 3 and all(isinstance(t, list) for t in tree[:2])
+
+
+def _map(fn, tree, k_fn):
+    """``fn`` on every array leaf of ``tree`` and ``k_fn`` on each graph
+    state's chunk counter; None stays None, and a named tuple with
+    :class:`VadCarry`'s fields becomes the port's VadCarry."""
     if tree is None:
         return None
+    if _is_graph_state(tree):
+        carries, pendings, k = tree
+        return _map(fn, carries, k_fn), _map(fn, pendings, k_fn), k_fn(k)
+    if isinstance(tree, dict):
+        return {key: _map(fn, v, k_fn) for key, v in tree.items()}
+    if isinstance(tree, tuple) and getattr(tree, "_fields", None) == VadCarry._fields:
+        return VadCarry(*(_map(fn, t, k_fn) for t in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, t) for t in tree)
+        return type(tree)(_map(fn, t, k_fn) for t in tree)
     return fn(tree)
 
 
 def stream_state_from_jax(state_np, device=None):
-    """The port's stream state from the JAX package's ``(carries, pendings, k)``
-    whose arrays have been converted to numpy (``np.asarray`` on each leaf)."""
-    carries, pendings, k = state_np
-
-    def to_tensor(a):
-        return torch.tensor(np.asarray(a), device=device)
-
-    return _map(to_tensor, list(carries)), _map(to_tensor, list(pendings)), int(k)
+    """The port's stream state (a Graph's or a Fork's) from the JAX
+    package's, whose arrays have been converted to numpy (``np.asarray`` on
+    each leaf)."""
+    return _map(lambda a: torch.tensor(np.asarray(a), device=device), state_np, int)
 
 
 def stream_state_to_numpy(state):
-    """The port's stream state as the JAX package's pytree, with numpy leaves
-    and ``k`` as an int32 scalar (``jax.numpy.asarray`` takes it from there)."""
-    carries, pendings, k = state
+    """The port's stream state with numpy leaves and each ``k`` as an int32
+    scalar, the structure of the JAX package's pytree (``jax.numpy.asarray``
+    takes it from there; a JAX ``VadCarry`` is rebuilt from
+    :func:`state_leaves` and the JAX state's tree definition)."""
+    return _map(lambda t: t.detach().cpu().numpy(), state, np.int32)
 
-    def to_numpy(t):
-        return t.detach().cpu().numpy()
 
-    return _map(to_numpy, list(carries)), _map(to_numpy, list(pendings)), np.int32(k)
+def _leaves(tree, out: list) -> list:
+    if tree is None:
+        return out
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            _leaves(tree[key], out)
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            _leaves(t, out)
+    else:
+        out.append(tree)
+    return out
+
+
+def state_leaves(state) -> list[np.ndarray]:
+    """The leaves of a stream state as numpy arrays, in the order of
+    ``jax.tree_util.tree_flatten`` on the JAX package's state, each ``k`` an
+    int32 scalar: a snapshot's ``leaf_i``."""
+    return [
+        t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.int32)
+        for t in _leaves(state, [])
+    ]
+
+
+def state_from_leaves(template, leaves, device=None):
+    """``template``'s structure with its leaves replaced, in
+    :func:`state_leaves` order, by ``leaves`` (numpy arrays): tensors on
+    ``device`` with the template's dtypes, ints where the template holds an
+    int."""
+    it = iter(leaves)
+
+    def take(t):
+        a = next(it)
+        if isinstance(t, torch.Tensor):
+            return torch.tensor(np.asarray(a), dtype=t.dtype, device=device)
+        return int(a)
+
+    def rebuild(tree):
+        if tree is None:
+            return None
+        if isinstance(tree, dict):
+            # leaves come in sorted-key order; the dict keeps its own order
+            done = {key: rebuild(tree[key]) for key in sorted(tree)}
+            return {key: done[key] for key in tree}
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(rebuild(t) for t in tree))
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(rebuild(t) for t in tree)
+        return take(tree)
+
+    out = rebuild(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out

@@ -9,6 +9,9 @@ Mirrors ``audioflow_tpu/graph/graph.py::Graph``. Two execution modes:
   explicit ``(carries, pendings, k)`` state; ``scan_stream`` runs a whole
   signal as a Python loop over chunks (the JAX package's ``lax.scan``).
 
+:class:`Fork` feeds one trunk graph into named branch graphs, each with its
+own output and streaming latency.
+
 The chunk counter ``k`` is a plain int, so the state converts both ways with
 the JAX package's checkpoint pytree (:mod:`audioflow_torch.convert`).
 Streamed output equals offline output shifted by ``stream_latency``: the
@@ -348,9 +351,201 @@ class Graph:
         for c in range(t // chunk_in):
             state, out = self.stream_step(state, x[..., c * chunk_in : (c + 1) * chunk_in])
             outs.append(out)
-        return torch.cat(outs, dim=-2 if self._out_domain == "frames" else -1)
+        # the streamed axis follows the lead axes, whatever the domain (a
+        # Vad's states are [..., n_frames])
+        return torch.cat(outs, dim=x.ndim - 1)
+
+    def compile_stream(self, donate: bool = True) -> Callable:
+        """``step(state, chunk) -> (state, out)``: :meth:`stream_step`.
+        ``donate`` is the JAX package's flag, accepted for parity: the step
+        allocates new state tensors and never writes the ones it is given."""
+        return self.stream_step
 
 
 def chain(*nodes: Node, input_rate: int | None = None, name: str = "graph") -> Graph:
     """Convenience constructor: ``chain(Resample(...), Spectrogram(...), ...)``."""
     return Graph(tuple(nodes), input_rate=input_rate, name=name)
+
+
+@dataclass(frozen=True)
+class Fork:
+    """A trunk graph feeding N named branch graphs: VAD-gated wire egress and
+    ungated features from one capture stream, the trunk computed once.
+
+    Unlike :class:`~audioflow_torch.graph.nodes.Mix`, which merges same-shape
+    branches back into the chain, the branches are whole graphs with their
+    own output domains, lengths and streaming latencies; outputs are a
+    ``{name: tensor}`` dict.
+
+    Streaming: the state is ``(trunk_state, {name: branch_state},
+    {name: pending})``; each branch's streamed output equals its offline
+    output shifted by that branch's ``stream_latency``.
+    """
+
+    trunk: Graph
+    branches: tuple  # ((name, Graph), ...)
+    name: str = "fork"
+
+    def __post_init__(self):
+        if not self.branches:
+            raise ConfigError("Fork needs at least one branch")
+        bs = tuple((str(k), g) for k, g in self.branches)
+        names = [k for k, _ in bs]
+        if len(set(names)) != len(names):
+            raise ConfigError(f"duplicate Fork branch names: {names}")
+        out_rate = self.trunk.output_rate
+        out_domain = self.trunk._out_domain
+        for k, g in bs:
+            if not _domains_compatible(out_domain, g.nodes[0].domain_in):
+                raise ConfigError(
+                    f"Fork branch {k!r} expects domain {g.nodes[0].domain_in!r} "
+                    f"but trunk produces {out_domain!r}"
+                )
+            if g.input_rate is not None and out_rate is not None and g.input_rate != out_rate:
+                raise ConfigError(
+                    f"Fork branch {k!r} input_rate {g.input_rate} != trunk output rate {out_rate}"
+                )
+        object.__setattr__(self, "branches", bs)
+
+    @property
+    def input_rate(self):
+        return self.trunk.input_rate
+
+    @property
+    def streamable(self) -> bool:
+        return self.trunk.streamable and all(g.streamable for _, g in self.branches)
+
+    # ------------------------------------------------------------- offline
+    def chain(self, x: torch.Tensor) -> dict:
+        y = self.trunk.chain(x)
+        return {k: g.chain(y) for k, g in self.branches}
+
+    def __call__(self, x):
+        return self.chain(x)
+
+    def compile(self, donate: bool = False) -> Callable:
+        """``fn(x, device=None) -> {name: output}``, every branch from one
+        trunk run; numpy input goes to ``device`` as in :meth:`Graph.compile`."""
+
+        def run(x, device=None):
+            return self.chain(as_tensor(x, device))
+
+        return run
+
+    # ----------------------------------------------------------- streaming
+    def chunk_granularity(self) -> int:
+        gran = self.trunk.chunk_granularity()
+        # a branch's granularity maps back through the trunk's rate ratio
+        ratio = Fraction(1)
+        for node in self.trunk.nodes:
+            m = node.chunk_multiple()
+            ratio *= Fraction(node.out_len(m), m)
+        for _, g in self.branches:
+            m = g.chunk_granularity()
+            need = (m * ratio.denominator) // math.gcd(ratio.numerator, m * ratio.denominator)
+            gran = math.lcm(gran, need)
+        return gran
+
+    def _trunk_out_len(self, chunk_in: int) -> int:
+        return self.trunk.chunk_lens(chunk_in)[-1]
+
+    def _branch_pads(self, chunk_in: int) -> dict:
+        """The trunk's latency padded up to each branch's granularity, so
+        each branch's streamed output is a whole-unit shift of its offline
+        output (the alignment ``Graph._delays`` applies within a chain)."""
+        trunk_lat = self.trunk.stream_latency(chunk_in)
+        return {k: (-trunk_lat) % g.chunk_granularity() if trunk_lat else 0 for k, g in self.branches}
+
+    def _trunk_axis(self) -> int:
+        return -2 if self.trunk._out_domain == "frames" else -1
+
+    def stream_latency(self, chunk_in: int) -> dict:
+        """Per-branch streaming latency in that branch's output units."""
+        mid = self._trunk_out_len(chunk_in)
+        trunk_lat = self.trunk.stream_latency(chunk_in)
+        pads = self._branch_pads(chunk_in)
+        out = {}
+        for k, g in self.branches:
+            lens = g.chunk_lens(mid)
+            aligned = trunk_lat + pads[k]
+            if (aligned * lens[-1]) % mid:
+                raise AudioError(f"Fork branch {k!r}: latency is not whole", code=ErrorCode.INTERNAL)
+            out[k] = aligned * lens[-1] // mid + g.stream_latency(mid)
+        return out
+
+    def init_state(self, chunk_in: int, lead_shape: tuple = (), dtype=torch.float32, device=None):
+        mid = self._trunk_out_len(chunk_in)
+        pads = self._branch_pads(chunk_in)
+        trunk_state = self.trunk.init_state(chunk_in, lead_shape, dtype, device)
+        spec = self.trunk.stream_step(
+            self.trunk.init_state(chunk_in, lead_shape, dtype, "meta"),
+            torch.empty((*lead_shape, chunk_in), dtype=dtype, device="meta"),
+        )[1]
+        pend = {}
+        for k, _ in self.branches:
+            if pads[k] == 0:
+                pend[k] = None
+                continue
+            shape = list(spec.shape)
+            shape[self._trunk_axis() % len(shape)] = pads[k]
+            pend[k] = torch.zeros(shape, dtype=spec.dtype, device=device)
+        return (
+            trunk_state,
+            {k: g.init_state(mid, lead_shape, dtype, device) for k, g in self.branches},
+            pend,
+        )
+
+    def stream_step(self, state, chunk: torch.Tensor):
+        trunk_state, branch_states, pend = state
+        step_idx = trunk_state[2]  # the trunk's chunk counter drives the preroll zeroing
+        trunk_state, y = self.trunk.stream_step(trunk_state, chunk)
+        axis = self._trunk_axis() % y.ndim
+        trunk_lat = self.trunk.stream_latency(chunk.shape[-1])
+        y_zeroed = y
+        n_zero = min(y.shape[axis], trunk_lat - step_idx * y.shape[axis])
+        if n_zero > 0:
+            # zero the trunk's own preroll so that no branch carry sees it
+            # (Graph._warmups within a chain); a branch whose head node
+            # consumes the preroll (warmup_passthrough) gets the raw output
+            y_zeroed = y.clone()
+            y_zeroed.narrow(axis, 0, n_zero).zero_()
+        new_states, new_pend, outs = {}, {}, {}
+        for k, g in self.branches:
+            yk = y if g.nodes[0].warmup_passthrough else y_zeroed
+            pk = pend[k]
+            if pk is not None:
+                # the JAX package's order: a padded branch takes the raw
+                # trunk output, its preroll not zeroed
+                n_out = y.shape[axis]
+                buf = torch.cat([pk, y], dim=axis)
+                yk = buf.narrow(axis, 0, n_out)
+                pk = buf.narrow(axis, n_out, buf.shape[axis] - n_out)
+            new_states[k], outs[k] = g.stream_step(branch_states[k], yk)
+            new_pend[k] = pk
+        return (trunk_state, new_states, new_pend), outs
+
+    def compile_stream(self, donate: bool = True) -> Callable:
+        """:meth:`stream_step`, as :meth:`Graph.compile_stream`."""
+        return self.stream_step
+
+    def scan_stream(self, x, chunk_in: int, device=None) -> dict:
+        """Stream a whole signal; a dict of each branch's concatenated output."""
+        x = as_tensor(x, device)
+        t = x.shape[-1]
+        if t % chunk_in:
+            raise AudioError(
+                f"signal length {t} not a multiple of chunk_in {chunk_in}; pad first",
+                code=ErrorCode.SHAPE_MISMATCH,
+            )
+        state = self.init_state(chunk_in, x.shape[:-1], x.dtype, x.device)
+        outs = {k: [] for k, _ in self.branches}
+        for c in range(t // chunk_in):
+            state, out = self.stream_step(state, x[..., c * chunk_in : (c + 1) * chunk_in])
+            for k, v in out.items():
+                outs[k].append(v)
+        return {k: torch.cat(v, dim=x.ndim - 1) for k, v in outs.items()}
+
+
+def fork(trunk: Graph, name: str = "fork", **branches: Graph) -> Fork:
+    """Convenience constructor: ``fork(trunk, wire=g1, features=g2)``."""
+    return Fork(trunk, tuple(branches.items()), name=name)

@@ -24,6 +24,7 @@ import torch
 
 from ..errors import AudioError, ErrorCode
 from ..ops import dynamics
+from ..ops import vad as _vad
 from ..ops.biquad import Biquad, iir_apply, make_iir_plan
 from ..ops.framing import overlap_add
 from ..ops.griffinlim import griffin_lim
@@ -37,6 +38,7 @@ from ..ops.phase_vocoder import (
     time_stretch,
 )
 from ..ops.pitch import pyin, yin_voicing
+from ..ops.quantize import quantize_i16, quantize_i16_round
 from ..ops.resample import (
     make_stream_plan,
     resample,
@@ -577,6 +579,134 @@ class Mfcc(Node):
         return mfcc(x, self.n_mfcc)
 
 
+def _resolve_vad_level(node) -> None:
+    """Resolve a named VAD sensitivity preset into ``threshold_db`` (a
+    frozen dataclass, so by ``object.__setattr__``). Unknown names raise."""
+    if not node.level:
+        return
+    levels = _vad.VAD_LEVELS
+    if node.level not in levels:
+        raise AudioError(
+            f"unknown VAD level {node.level!r}; known: {sorted(levels)}",
+            code=ErrorCode.CONFIG_VALIDATION_ERROR,
+        )
+    object.__setattr__(node, "threshold_db", levels[node.level].threshold_db)
+
+
+def _vad_frames(x: torch.Tensor, frame_len: int) -> torch.Tensor:
+    n = x.shape[-1] // frame_len
+    return x[..., : n * frame_len].reshape(*x.shape[:-1], n, frame_len)
+
+
+@register_node
+@dataclass(frozen=True)
+class Vad(Node):
+    """Energy VAD over fixed frames; emits int32 states (0/1/2) per frame.
+
+    ``level`` names a sensitivity preset ("aggressive", "balanced",
+    "relaxed"; :data:`audioflow_torch.ops.vad.VAD_LEVELS`) that overrides
+    ``threshold_db``; the empty string keeps ``threshold_db``. The carry is
+    the :class:`~audioflow_torch.ops.vad.VadCarry` of the stream.
+    """
+
+    frame_len: int = 320  # 20 ms at 16 kHz, the reference capture cadence
+    threshold_db: float = -50.0
+    smoothing_factor: float = 0.3
+    silence_timeout_frames: int = 15
+    min_speech_frames: int = 3
+    level: str = ""
+
+    domain_out = "frames"
+
+    def __post_init__(self):
+        _resolve_vad_level(self)
+
+    def _cfg(self):
+        return _vad.VadConfig(
+            self.threshold_db, self.smoothing_factor, self.silence_timeout_frames, self.min_speech_frames
+        )
+
+    def apply(self, x):
+        return _vad.vad_scan(_vad_frames(x, self.frame_len), self._cfg())[1]
+
+    def chunk_multiple(self):
+        return self.frame_len
+
+    def out_len(self, n_in):
+        return n_in // self.frame_len
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        return _vad.vad_init(lead_shape, dtype, device)
+
+    def step(self, carry, chunk):
+        return _vad.vad_scan(_vad_frames(chunk, self.frame_len), self._cfg(), carry)
+
+
+@register_node
+@dataclass(frozen=True)
+class QuantizeI16(Node):
+    """Wire-parity f32 -> i16."""
+
+    rounding: str = "trunc"  # "trunc" (reference parity) or "round"
+    domain_in = "any"
+    domain_out = "any"
+
+    def apply(self, x):
+        if self.rounding == "trunc":
+            return quantize_i16(x)
+        return quantize_i16_round(x)
+
+
+@register_node
+@dataclass(frozen=True)
+class VadGate(Node):
+    """Mute non-speech audio: only speech goes to the ASR service. Frames
+    whose VAD state is Speech (or Ending, with ``keep_ending``) pass;
+    silence is zeroed. Emits samples, where :class:`Vad` emits states."""
+
+    frame_len: int = 320
+    threshold_db: float = -50.0
+    smoothing_factor: float = 0.3
+    silence_timeout_frames: int = 15
+    min_speech_frames: int = 3
+    keep_ending: bool = True
+    level: str = ""  # named preset, as Vad.level
+
+    def __post_init__(self):
+        _resolve_vad_level(self)
+
+    def _cfg(self):
+        return _vad.VadConfig(
+            self.threshold_db, self.smoothing_factor, self.silence_timeout_frames, self.min_speech_frames
+        )
+
+    def chunk_multiple(self):
+        return self.frame_len
+
+    def _gate(self, x, states):
+        keep = states == _vad.SPEECH
+        if self.keep_ending:
+            keep = keep | (states == _vad.ENDING)
+        n = states.shape[-1]
+        frames = x[..., : n * self.frame_len].reshape(*x.shape[:-1], n, self.frame_len)
+        gated = frames * keep[..., None].to(x.dtype)
+        return gated.reshape(*x.shape[:-1], n * self.frame_len)
+
+    def apply(self, x):
+        _, states = _vad.vad_scan(_vad_frames(x, self.frame_len), self._cfg())
+        return self._gate(x, states)
+
+    def out_len(self, n_in):
+        return n_in // self.frame_len * self.frame_len
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        return _vad.vad_init(lead_shape, dtype, device)
+
+    def step(self, carry, chunk):
+        carry, states = _vad.vad_scan(_vad_frames(chunk, self.frame_len), self._cfg(), carry)
+        return carry, self._gate(chunk, states)
+
+
 @register_node
 @dataclass(frozen=True)
 class TimeStretch(Node):
@@ -950,3 +1080,164 @@ class Istft(Node):
         ws = torch.cat([ws[:tail] + wsum_tail, ws[tail:]])
         emit = y[..., : m * self.hop] / torch.clamp_min(ws[: m * self.hop], 1e-11)
         return (y[..., m * self.hop :], ws[m * self.hop :]), emit
+
+
+_MIX_COMBINES = ("sum", "mean", "product", "max", "min")
+
+
+@register_node
+@dataclass(frozen=True)
+class Mix(Node):
+    """Multi-branch combine: each branch sub-chain runs on the same input and
+    the outputs merge elementwise (dry/wet, multiband, a level meter beside
+    a gate).
+
+    ``branches`` is a tuple of node tuples; all end in one domain with the
+    same output length and rate. ``weights`` scales each branch before the
+    combine; None leaves them unweighted.
+
+    Streaming: each branch keeps its own graph state; branches with less
+    latency are delayed (zero-filled pending buffers) to the slowest, so the
+    streamed mix equals the offline mix shifted by one whole-unit latency.
+    """
+
+    branches: tuple = ()
+    combine: str = "sum"
+    weights: tuple | None = None
+
+    domain_in = "samples"
+    domain_out = "samples"
+
+    def __post_init__(self):
+        if len(self.branches) < 2:
+            raise AudioError("Mix needs at least 2 branches", code=ErrorCode.CONFIG_VALIDATION_ERROR)
+        if self.combine not in _MIX_COMBINES:
+            raise AudioError(
+                f"unknown combine {self.combine!r}; known: {_MIX_COMBINES}",
+                code=ErrorCode.CONFIG_VALIDATION_ERROR,
+            )
+        if self.weights is not None and len(self.weights) != len(self.branches):
+            raise AudioError(
+                f"weights ({len(self.weights)}) != branches ({len(self.branches)})",
+                code=ErrorCode.CONFIG_VALIDATION_ERROR,
+            )
+        object.__setattr__(self, "branches", tuple(tuple(b) for b in self.branches))
+
+    # --- graph construction -----------------------------------------------
+    def _graphs(self):
+        gs = getattr(self, "_bound_graphs", None)
+        return self._build(None) if gs is None else gs
+
+    def _build(self, rate):
+        from .graph import Graph
+
+        gs = tuple(Graph(b, input_rate=rate, name=f"mix_branch_{i}") for i, b in enumerate(self.branches))
+        d0 = gs[0].nodes[-1].domain_out
+        for g in gs[1:]:
+            if g.nodes[-1].domain_out != d0:
+                raise AudioError(
+                    f"Mix branches end in different domains: {[g.nodes[-1].domain_out for g in gs]}",
+                    code=ErrorCode.CONFIG_VALIDATION_ERROR,
+                )
+            if g.output_rate != gs[0].output_rate:
+                raise AudioError(
+                    f"Mix branches end at different rates: {[g.output_rate for g in gs]}",
+                    code=ErrorCode.CONFIG_VALIDATION_ERROR,
+                )
+        m = self.chunk_multiple_of(gs)
+        lens = {g.chunk_lens(m)[-1] for g in gs}
+        if len(lens) != 1:
+            raise AudioError(
+                f"Mix branches disagree on output length for chunk {m}: {lens}",
+                code=ErrorCode.CONFIG_VALIDATION_ERROR,
+            )
+        object.__setattr__(self, "_bound_graphs", gs)
+        object.__setattr__(self, "domain_out", d0)
+        return gs
+
+    def bind(self, rate_in):
+        new = dataclasses.replace(self)
+        new._build(rate_in)
+        return new
+
+    def rate_out(self, rate_in):
+        return self._graphs()[0].output_rate
+
+    @property
+    def streamable(self):
+        return all(g.streamable for g in self._graphs())
+
+    # --- offline ------------------------------------------------------------
+    def _merge(self, outs):
+        if self.weights is not None:
+            outs = [w * o for w, o in zip(self.weights, outs)]
+        y = outs[0]
+        if self.combine in ("sum", "mean"):
+            for o in outs[1:]:
+                y = y + o
+            return y / len(outs) if self.combine == "mean" else y
+        if self.combine == "product":
+            for o in outs[1:]:
+                y = y * o
+            return y
+        fn = torch.maximum if self.combine == "max" else torch.minimum
+        for o in outs[1:]:
+            y = fn(y, o)
+        return y
+
+    def apply(self, x):
+        return self._merge([g.chain(x) for g in self._graphs()])
+
+    # --- streaming ----------------------------------------------------------
+    @staticmethod
+    def chunk_multiple_of(gs):
+        m = 1
+        for g in gs:
+            m = math.lcm(m, g.chunk_granularity())
+        return m
+
+    def chunk_multiple(self):
+        return self.chunk_multiple_of(self._graphs())
+
+    def out_len(self, n_in):
+        return self._graphs()[0].chunk_lens(n_in)[-1]
+
+    def latency(self, n_in):
+        return max(g.stream_latency(n_in) for g in self._graphs())
+
+    def _stream_axis(self):
+        return -2 if self.domain_out == "frames" else -1
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        lat = self.latency(n_in)
+        states, pads = [], []
+        for g in self._graphs():
+            states.append(g.init_state(n_in, lead_shape, dtype, device))
+            need = lat - g.stream_latency(n_in)
+            if need == 0:
+                pads.append(None)
+                continue
+            spec = g.stream_step(
+                g.init_state(n_in, lead_shape, dtype, "meta"),
+                torch.empty((*lead_shape, n_in), dtype=dtype, device="meta"),
+            )[1]
+            shape = list(spec.shape)
+            shape[self._stream_axis() % len(shape)] = need
+            pads.append(torch.zeros(shape, dtype=spec.dtype, device=device))
+        return tuple(states), tuple(pads)
+
+    def step(self, carry, chunk):
+        states, pads = carry
+        new_states, new_pads, outs = [], [], []
+        for g, st, pend in zip(self._graphs(), states, pads):
+            st, y = g.stream_step(st, chunk)
+            if pend is not None:
+                axis = self._stream_axis() % y.ndim
+                n_out = y.shape[axis]
+                buf = torch.cat([pend, y], dim=axis)
+                y = buf.narrow(axis, 0, n_out)
+                pend = buf.narrow(axis, n_out, buf.shape[axis] - n_out)
+            new_states.append(st)
+            new_pads.append(pend)
+            outs.append(y)
+        return (tuple(new_states), tuple(new_pads)), self._merge(outs)

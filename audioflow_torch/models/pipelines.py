@@ -13,8 +13,10 @@ from ..graph import (
     LogMelSpec,
     MelProject,
     Preemphasis,
+    QuantizeI16,
     Resample,
     Spectrogram,
+    Vad,
     chain,
 )
 from ..ops import biquad as bq
@@ -126,3 +128,31 @@ def kaldi_fbank_frontend(
     if cmvn:
         nodes.append(Cmvn(norm_var=norm_var))
     return Graph(tuple(nodes), input_rate=sample_rate, name="kaldi_fbank")
+
+
+def vad_graph(
+    sample_rate: int = 16000,
+    frame_ms: int = 20,
+    threshold_db: float = -50.0,
+    smoothing_factor: float = 0.3,
+    level: str = "",
+) -> Graph:
+    """The dictation front path's feature: frame-wise VAD states. ``level``
+    names a sensitivity preset, overriding ``threshold_db``."""
+    frame_len = sample_rate * frame_ms // 1000
+    return chain(
+        Vad(frame_len, threshold_db, smoothing_factor, level=level),
+        input_rate=sample_rate,
+        name="vad",
+    )
+
+
+def wire_egress_graph(input_rate: int = 48000, target_rate: int = 16000) -> Graph:
+    """The device side of the dictation path: capture rate -> 16 kHz resample
+    (cubic, the reference's mode) -> i16, the samples the wire codec base64s."""
+    return chain(
+        Resample(input_rate, target_rate, "cubic"),
+        QuantizeI16(),
+        input_rate=input_rate,
+        name="wire_egress",
+    )

@@ -1,6 +1,6 @@
 """Signal ops of the port: plain torch on tensors, fp32 matmuls."""
 
-from . import biquad, dynamics
+from . import biquad, dynamics, quantize, ring, vad
 from .biquad import (
     Biquad,
     allpass,
@@ -50,14 +50,19 @@ from .mel import (
     mfcc_to_log_mel,
 )
 from .phase_vocoder import phase_vocoder, pitch_shift, time_stretch
+from .quantize import dequantize_i16, quantize_i16, quantize_i16_round
 from .pitch import cmnd_frames, pyin, pyin_frames, yin, yin_frames, yin_voicing
 from .resample import resample
+from .ring import Ring, ring_available, ring_clear, ring_free, ring_init, ring_read, ring_write
 from .sequence import max_plus_band, max_plus_band_argmax, transition_local
 from .stft import istft, magnitude, power, spectrogram, stft
+from .vad import VAD_LEVELS, VadCarry, VadConfig, is_speaking, vad_init, vad_scan, vad_step
 from .windows import get_window
 
 __all__ = [
-    "Biquad", "agc", "allpass", "apply_mel", "bandpass", "biquad", "biquad_chain", "cmnd_frames", "cmvn",
+    "Biquad", "Ring", "VAD_LEVELS", "VadCarry", "VadConfig", "dequantize_i16", "is_speaking", "quantize",
+    "quantize_i16", "quantize_i16_round", "ring", "ring_available", "ring_clear", "ring_free", "ring_init",
+    "ring_read", "ring_write", "vad", "vad_init", "vad_scan", "vad_step", "agc", "allpass", "apply_mel", "bandpass", "biquad", "biquad_chain", "cmnd_frames", "cmvn",
     "compressor", "compressor_gain", "dct_matrix", "deemphasis", "dynamics", "energy_to_dbfs", "frame",
     "gain_db", "gate_gain", "get_window", "griffin_lim", "high_shelf", "highpass", "hz_to_mel", "iir_apply",
     "istft", "limiter", "log_mel", "low_shelf", "lowpass", "magnitude", "make_iir_plan", "max_plus_band",

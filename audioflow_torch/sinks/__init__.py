@@ -1,7 +1,7 @@
 """Egress of the port: sinks, the wire codec, event hooks.
 
-Mirrors ``audioflow_tpu/sinks`` without its websocket client, which comes
-with the streaming session.
+Mirrors ``audioflow_tpu/sinks``: file and array sinks, the wire codec, the
+event hooks, and the WebSocket client of the dictation egress.
 """
 
 from .events import Event, EventDispatcher, EventKind
@@ -16,6 +16,7 @@ from .sinks import (
     auto_sink,
     to_host,
 )
+from .websocket import ConnectionState, Opcode, WebSocketClient, WebSocketConfig, WsMessage
 from .wire import (
     configure_message,
     decode_audio_chunk,
@@ -28,14 +29,19 @@ from .wire import (
 __all__ = [
     "ArraySink",
     "CallbackSink",
+    "ConnectionState",
     "Event",
     "EventDispatcher",
     "EventKind",
     "JsonlSink",
     "NpySink",
+    "Opcode",
     "Sink",
     "WavSink",
+    "WebSocketClient",
+    "WebSocketConfig",
     "WireJsonlSink",
+    "WsMessage",
     "auto_sink",
     "configure_message",
     "decode_audio_chunk",

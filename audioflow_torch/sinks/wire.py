@@ -21,8 +21,9 @@ MARKERS = ("【SPEECH_CHANGE】", "【SILENCE】")
 
 
 def pcm_f32_to_i16_bytes(samples: np.ndarray) -> bytes:
-    """clamp * 32767, trunc toward zero (Rust `as i16`), little-endian."""
-    x = np.asarray(samples, dtype=np.float32)
+    """clamp * 32767, trunc toward zero (Rust `as i16`), little-endian; NaN
+    as 0, as ``ops.quantize_i16``."""
+    x = np.nan_to_num(np.asarray(samples, dtype=np.float32), nan=0.0)
     q = np.trunc(np.clip(x, -1.0, 1.0) * 32767.0).astype("<i2")
     return q.tobytes()
 

@@ -2,8 +2,9 @@
 
 Drives the port's ported paths through the hand-written CUDA kernels,
 BASELINE configs 3 and 5 through the biquad engine and the melspec kernel,
-and the file path (decode, staging ring, batch runner, sinks) through
-``audioflow run``, and checks them. The log-mel frontend
+the file path (decode, staging ring, batch runner, sinks) through
+``audioflow run``, the validate report, and the dictation path (stream
+session, VAD, i16 wire egress over a WebSocket), and checks them. The log-mel frontend
 ``log_mel_frontend(44100, 16000, 1024, 256, 128, center=False)`` streamed in
 14,112-sample chunks over a 512 x 10 s tone batch (kernel ``melspec``);
 BASELINE config 4, time-stretch and pitch-shift, offline through
@@ -102,7 +103,32 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
     same files, exactly equal to the graph called directly;
 21. the file path's timing, printed with no bound: audio-s/s from the run's
     ``RunMetrics``, host decode, the copy to the card and the graph per
-    batch, and the device busy share of the run under torch.profiler.
+    batch, and the device busy share of the run under torch.profiler;
+22. the validate report: ``run_validation`` in the process with every
+    kernel's launches counted from 0 (each row set launches a kernel), then
+    ``python -m audioflow_torch.cli validate`` in a subprocess: exit 0, 15
+    rows and the 8 missing listed, each row printed beside its budget;
+23. the stream session at the JAX bench's width (``bench.py:196-245``):
+    ``StreamSession(log_mel_frontend(44100, 16000, 1024, 256, 128))`` with
+    lead (64,) over 64 x 10 s of the tone batch, chunk 14,112, pushed a
+    chunk at a time and in 8-chunk blocks (staging of 17 chunks): results
+    exactly equal to ``scan_stream``, one melspec launch a chunk and one
+    for the warm-up; audio-s/s, p50/p99 ms a chunk with the host copy of
+    its result, the card's idle share;
+24. the dictation fork (SURVEY 3.3): ``fork(Resample(48000->16000,
+    kaiser), wire=VadGate(320)+QuantizeI16, vad=Vad(320),
+    features=LogMelSpec(1024, 256, 128))`` through a session, lead (64,),
+    64 x 30 s at 48 kHz of a seeded speech-like batch in 960-sample pushes:
+    every branch exactly equal to ``Fork.scan_stream``; a snapshot halfway
+    restored into a fresh session, its tail exactly the uninterrupted one;
+    VAD states equal to the CPU's, i16 within 1 LSB; NaN and +-inf
+    quantized as on the CPU; ms a push and the VAD nodes' aten ops a chunk;
+25. egress: a 48 kHz WAV through ``audioflow egress --vad-gate`` to a
+    loopback WebSocket server (``tests/ws_loopback.py``, 127.0.0.1, an
+    ephemeral port): the server's audio exactly the i16 of the graph on the
+    card, the chunk count and the transcript lines as sent; then once more
+    with the server dropping the connection after 3 chunks: a reconnect,
+    the configure message again, the chunks that arrived in order.
 
 Every device time (phases 3, 6, 9, 12) is the median of three readings
 under torch.profiler, printed with the readings and the device events per
@@ -193,6 +219,11 @@ FILE_TOL = 0.0
 IIR_ORACLE_TOL = 1e-4
 # sample space: the card against the CPU, streamed against offline
 SAMPLE_TOL = 1e-5
+# the session (phase 23) at the JAX bench's width (bench.py:196-245): 64 x 10 s
+SESSION_BATCH = 64
+# the dictation fork (phase 24): 64 x 30 s at 48 kHz; egress (phase 25): one 12 s file
+DICTATION_SECONDS = 30.0
+EGRESS_SECONDS = 12.0
 
 
 def rfft_flops(n: int) -> float:
@@ -556,6 +587,285 @@ def file_path(dev: torch.device, card: str) -> dict:
               f"{json.dumps([round(r, 1) for r in e2e['page-locked']])}, pageable ring "
               f"{json.dumps([round(r, 1) for r in e2e['pageable']])}")
     return {"launches_file_path": launches, "launches_config5_spec": launches5}
+
+
+def _speech_batch(batch: int, seconds: float, rate: int, seed: int) -> np.ndarray:
+    """A seeded speech-like batch: per row, tone-and-noise bursts of 0.2-1.2 s
+    (about -20 dBFS in the VAD's mean-square measure) between silences of
+    0.4-1.5 s (a noise floor near -100 dBFS), both well clear of the VAD's
+    -50 dB threshold."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * rate)
+    x = (1e-5 * rng.standard_normal((batch, n))).astype(np.float32)
+    for row in x:
+        pos = int(rng.uniform(0.1, 0.6) * rate)
+        while pos < n:
+            m = min(n - pos, int(rng.uniform(0.2, 1.2) * rate))
+            t = np.arange(m, dtype=np.float32) / rate
+            row[pos : pos + m] += (0.3 * np.sin(2 * np.pi * rng.uniform(120, 900) * t)
+                                   + 0.05 * rng.standard_normal(m)).astype(np.float32)
+            pos += m + int(rng.uniform(0.4, 1.5) * rate)
+    return x
+
+
+def dictation(dev: torch.device, card: str) -> dict:
+    """Phases 22-25: the validate report, the stream session at the JAX
+    bench's width, the dictation fork through a session, and the egress over
+    a loopback WebSocket. Returns the launch counts for the kernels line."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from audioflow_torch import cli
+    from audioflow_torch.graph import LogMelSpec, QuantizeI16, Resample, Vad, VadGate, chain, fork
+    from audioflow_torch.io import write_wav
+    from audioflow_torch.models import log_mel_frontend
+    from audioflow_torch.ops import quantize_i16
+    from audioflow_torch.ops.kernels import griffinlim, melspec, timestretch, viterbi
+    from audioflow_torch.profiling import aten_ops, profile, tone_batch
+    from audioflow_torch.session import StreamSession
+    from audioflow_torch.sinks import pcm_f32_to_i16_bytes
+    from audioflow_torch.validate import BUDGETS, ROWS_MISSING, run_validation, within_budget
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    kernels = {"melspec": melspec, "timestretch": timestretch, "griffinlim": griffinlim, "viterbi": viterbi}
+    out = {}
+
+    # phase 22: validate. In the process, with the launches counted from 0,
+    # then as the CLI in a subprocess, whose exit code is the verdict
+    for k in kernels.values():
+        k.COUNT.launches = 0
+    report = run_validation(device=dev)
+    torch.cuda.synchronize()
+    out["launches_validate"] = {name: k.COUNT.launches for name, k in kernels.items()}
+    check(all(out["launches_validate"].values()), f"validate launches {out['launches_validate']}")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))}
+    proc = subprocess.run([sys.executable, "-m", "audioflow_torch.cli", "validate"], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"audioflow validate exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    cli_report = json.loads(proc.stdout)
+    rows = {k: v for k, v in cli_report.items() if k not in ("pass", "max_abs_err", "rows_missing")}
+    check(len(rows) == 15 and cli_report["rows_missing"] == list(ROWS_MISSING) and cli_report["pass"],
+          f"validate report rows {sorted(rows)}, missing {cli_report['rows_missing']}")
+    bad = [k for k, v in {**rows, "max_abs_err": cli_report["max_abs_err"]}.items() if not within_budget(k, v)]
+    check(not bad and report["pass"], f"validate rows over budget: {bad}")
+    print(f"phase 22 validate on the card ({card}): `audioflow validate` exit 0, pass {cli_report['pass']}; "
+          f"{len(rows)} rows, missing {len(cli_report['rows_missing'])} {cli_report['rows_missing']}; row (budget): "
+          + ", ".join(f"{k} {v:.3e} ({BUDGETS.get(k, ('<', 1e-4))[0]} {BUDGETS.get(k, ('<', 1e-4))[1]})"
+                      for k, v in {**rows, "max_abs_err": cli_report["max_abs_err"]}.items())
+          + f"; in-process launches {json.dumps(out['launches_validate'])}")
+
+    # phase 23: the session at the JAX bench's width (bench.py:196-245):
+    # per-chunk pushes and 8-chunk block pushes, each against scan_stream
+    g = log_mel_frontend(RATE, 16000, 1024, 256, 128)
+    gran = g.chunk_granularity()
+    chunk = gran * max(1, 16384 // gran)
+    x_np = tone_batch(SESSION_BATCH, SECONDS, RATE, SEED)
+    n_all = x_np.shape[-1] // chunk
+    x_np = np.ascontiguousarray(x_np[:, : n_all * chunk])
+    want_all = g.scan_stream(torch.from_numpy(x_np).to(dev), chunk).cpu().numpy()
+    per_chunk_out = want_all.shape[1] // n_all
+    session_rows = {}
+    for name, block, cap in (("per-chunk", chunk, None), ("8-chunk blocks", 8 * chunk, 17 * chunk)):
+        # whole blocks of the signal, as the JAX bench: a prefix of the stream
+        n_chunks = n_all // (block // chunk) * (block // chunk)
+        want = want_all[:, : n_chunks * per_chunk_out]
+        melspec.COUNT.launches = 0
+        sess = StreamSession(g, chunk, lead_shape=(SESSION_BATCH,), ring_capacity=cap, device=dev).open()
+        for i in range(0, n_chunks * chunk, block):
+            sess.push(x_np[:, i : i + block])
+        res = sess.poll_all()
+        launches = melspec.COUNT.launches
+        got = np.concatenate([r.data for r in res], axis=1)
+        check(len(res) == n_chunks and [r.index for r in res] == list(range(n_chunks)), f"{name}: {len(res)} results")
+        check(np.array_equal(got, want), f"session {name} vs scan_stream max|d| {np.abs(got - want).max()}")
+        check(launches == n_chunks + 1, f"session {name}: melspec launched {launches} times for {n_chunks} chunks + 1")
+        # throughput: one pass of pushes after a warm one, the last result
+        # copied to the host as the sync; latency: per push, with the host
+        # copy of its last result, as the JAX bench's latency loop
+        t0 = time.perf_counter()
+        for i in range(0, n_chunks * chunk, block):
+            sess.push(x_np[:, i : i + block])
+        res = sess.poll_all()
+        res[-1].data.sum()
+        wall = time.perf_counter() - t0
+        lat = []
+        for _ in range(3):
+            for i in range(0, n_chunks * chunk, block):
+                tb = time.perf_counter()
+                sess.push(x_np[:, i : i + block])
+                res = sess.poll_all()
+                res[-1].data.sum()
+                lat.append((time.perf_counter() - tb) / (block // chunk) * 1e3)
+
+        def one_pass(sess=sess, block=block):
+            for i in range(0, n_chunks * chunk, block):
+                sess.push(x_np[:, i : i + block])
+            sess.poll_all()[-1].data.sum()
+
+        prof = profile(one_pass)
+        top = ", ".join(f"{k['name'][:40]} {k['share']:.1%}" for k in prof["kernels"][:4])
+        sess.close()
+        audio = SESSION_BATCH * n_chunks * chunk / RATE
+        session_rows[name] = {"audio_s_per_s": audio / wall, "p50_ms": float(np.percentile(lat, 50)),
+                              "p99_ms": float(np.percentile(lat, 99)), "idle_untraced": prof["idle_untraced"],
+                              "idle_traced": prof["idle_traced"], "launches": launches}
+        print(f"phase 23 session {name} ({card}): log_mel_frontend(44100, 16000, 1024, 256, 128), lead "
+              f"({SESSION_BATCH},), chunk {chunk}, {n_chunks} chunks: results exactly equal to scan_stream, melspec "
+              f"launches {launches} = chunks {n_chunks} + 1 warm-up; {audio / wall:.0f} audio-s/s ({audio:.1f} "
+              f"audio-s in {wall * 1e3:.1f} ms); per chunk with the host copy p50 {np.percentile(lat, 50):.3f} ms, "
+              f"p99 {np.percentile(lat, 99):.3f} ms; card idle {prof['idle_untraced']:.1%} untraced, "
+              f"{prof['idle_traced']:.1%} traced ({prof['launches']} device events a pass, busy "
+              f"{prof['busy_ms']:.3f} ms; {top})")
+    out["launches_session"] = session_rows["per-chunk"]["launches"]
+    out["session"] = session_rows
+    del x_np, want, want_all
+
+    # phase 24: the dictation fork (SURVEY 3.3) through a session, pushed at
+    # the capture cadence (20 ms), snapshot halfway and restored
+    def dictation_fork(branches):
+        return fork(chain(Resample(48000, 16000, "kaiser"), input_rate=48000), **branches)
+
+    full = {
+        "wire": chain(VadGate(320), QuantizeI16(), input_rate=16000),
+        "vad": chain(Vad(320), input_rate=16000),
+        "features": chain(LogMelSpec(1024, 256, 128, center=False), input_rate=16000),
+    }
+    f = dictation_fork(full)
+    x48 = _speech_batch(SESSION_BATCH, DICTATION_SECONDS, 48000, SEED)
+    push = 960
+    n_push = x48.shape[-1] // push
+
+    def drive(sess, first, last):
+        for p in range(first, last):
+            sess.push(x48[:, p * push : (p + 1) * push])
+        return sess.poll_all()
+
+    melspec.COUNT.launches = 0
+    sess = StreamSession(f, lead_shape=(SESSION_BATCH,), device=dev).open()
+    chunk48 = sess.chunk_in
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_a = drive(sess, 0, n_push)
+    res_a[-1].data
+    push_ms = (time.perf_counter() - t0) / n_push * 1e3
+    sess.flush()
+    res_a += sess.poll_all()
+    sess.close()
+    launches_d = melspec.COUNT.launches
+    n_res = len(res_a)
+    check(n_res == -(-x48.shape[-1] // chunk48) and launches_d == n_res + 1,
+          f"dictation: {n_res} results, melspec launched {launches_d} times")
+    cat = {k: np.concatenate([r.data[k] for r in res_a], axis=1) for k in full}
+    pad = n_res * chunk48 - x48.shape[-1]
+    xd = torch.nn.functional.pad(torch.from_numpy(x48).to(dev), (0, pad))
+    scan = {k: v.cpu().numpy() for k, v in f.scan_stream(xd, chunk48).items()}
+    for k in full:
+        check(np.array_equal(cat[k], scan[k]), f"dictation branch {k}: session vs Fork.scan_stream differ")
+    # snapshot halfway, restore into a fresh session, finish the stream
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_snap_") as tmp:
+        sess = StreamSession(f, lead_shape=(SESSION_BATCH,), device=dev).open()
+        first = drive(sess, 0, n_push // 2)
+        sess.snapshot(os.path.join(tmp, "half"))
+        pending = sess._pending
+        sess.close()
+        resumed = StreamSession(f, lead_shape=(SESSION_BATCH,), device=dev).restore(os.path.join(tmp, "half"))
+        tail = drive(resumed, n_push // 2, n_push)
+        resumed.flush()
+        tail += resumed.poll_all()
+    check([r.index for r in tail] == list(range(len(first), n_res)), "restored session's result indices")
+    for r in tail:
+        for k in full:
+            check(np.array_equal(r.data[k], res_a[r.index].data[k]), f"restored tail, chunk {r.index} {k} differs")
+    # the card against the CPU: VAD states exactly, i16 within 1 LSB
+    cpu = dictation_fork({k: full[k] for k in ("wire", "vad")}).scan_stream(xd.cpu(), chunk48)
+    vad_cpu, wire_cpu = cpu["vad"].numpy(), cpu["wire"].numpy()
+    check(np.array_equal(scan["vad"], vad_cpu), "dictation VAD states: card vs CPU differ")
+    lsb = int(np.abs(scan["wire"].astype(np.int32) - wire_cpu).max())
+    check(lsb <= 1, f"dictation i16: card vs CPU {lsb} LSB")
+    states = np.unique(scan["vad"])
+    check(set(states.tolist()) == {0, 1, 2}, f"dictation VAD states {states}")
+    specials = torch.tensor([np.nan, np.inf, -np.inf, 0.99999, -0.99999, 1.5, -1.5, 0.5, 0.0])
+    q_card, q_cpu = quantize_i16(specials.to(dev)).cpu(), quantize_i16(specials)
+    check(torch.equal(q_card, q_cpu) and q_card[:4].tolist() == [0, 32767, -32767, 32766],
+          f"quantize_i16 of NaN, +-inf on the card {q_card.tolist()} vs the CPU {q_cpu.tolist()}")
+    # the VAD's launches per chunk: one Vad and one VadGate step on one
+    # resampled chunk (4 frames of 320), every aten op counted
+    mid = chunk48 // 3
+    y_mid = xd[:, :mid] * 0 + 0.1
+    vad_ops = aten_ops(lambda: Vad(320).step(Vad(320).init_carry((SESSION_BATCH,), mid, device=dev), y_mid))
+    gate_ops = aten_ops(lambda: VadGate(320).step(VadGate(320).init_carry((SESSION_BATCH,), mid, device=dev), y_mid))
+    step_ops = aten_ops(lambda: f.stream_step(f.init_state(chunk48, (SESSION_BATCH,), device=dev), xd[:, :chunk48]))
+    # where a push's time goes: 200 pushes (50 chunks) of a warm session
+    sess = StreamSession(f, lead_shape=(SESSION_BATCH,), device=dev).open()
+    prof = profile(lambda: drive(sess, 0, 200)[-1].data)
+    sess.close()
+    top = ", ".join(f"{k['name'][:40]} {k['share']:.1%} ({k['calls']})" for k in prof["kernels"][:5])
+    out["launches_dictation"] = launches_d
+    out["dictation"] = {"push_ms": push_ms, "vad_ops_per_chunk": vad_ops, "gate_ops_per_chunk": gate_ops,
+                        "step_ops": step_ops, "chunks": n_res}
+    print(f"phase 24 dictation ({card}): fork(Resample(48000->16000, kaiser), wire=VadGate(320)+QuantizeI16, "
+          f"vad=Vad(320), features=LogMelSpec(1024, 256, 128)) through a session, lead ({SESSION_BATCH},), "
+          f"{DICTATION_SECONDS:.0f} s at 48 kHz in {n_push} pushes of {push}, chunk {chunk48}: {n_res} results, "
+          f"every branch exactly equal to Fork.scan_stream; snapshot after {len(first)} chunks ({pending} samples "
+          f"pending), restored tail of {len(tail)} exactly equal; VAD states {states.tolist()} equal to the CPU's, "
+          f"i16 within {lsb} LSB of the CPU's; quantize_i16 of [nan, inf, -inf, 0.99999] on the card "
+          f"{q_card[:4].tolist()}; melspec launches {launches_d} = chunks {n_res} + 1 warm-up; {push_ms:.3f} ms a "
+          f"push ({push_ms * chunk48 / push:.3f} ms a chunk); aten ops a chunk: Vad {vad_ops}, VadGate {gate_ops}, "
+          f"the whole fork step {step_ops}; 200 pushes under the profiler: {prof['untraced_ms']:.1f} ms, card busy "
+          f"{prof['busy_ms']:.2f} ms, idle {prof['idle_untraced']:.1%} untraced, {prof['idle_traced']:.1%} traced, "
+          f"{prof['launches']} device events; {top}")
+    del xd, x48, scan, cat
+
+    # phase 25: egress over a loopback WebSocket (127.0.0.1, ephemeral port)
+    sys.path.insert(0, os.path.join(root, "tests"))
+    from ws_loopback import ScribeServer
+
+    def run_egress(wav, srv):
+        buf = io.StringIO()
+        srv.start()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["egress", "-i", wav, "--url", f"ws://127.0.0.1:{srv.port}/v1/scribe", "--vad-gate",
+                           "--receive-timeout", "5.0"])
+        srv.join(10)
+        check(rc == 0 and not srv.is_alive(), f"audioflow egress exited {rc}")
+        return [json.loads(line) for line in buf.getvalue().strip().splitlines()]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_egress_") as tmp:
+        sig = _speech_batch(1, EGRESS_SECONDS, 48000, SEED + 7)[0]
+        wav = os.path.join(tmp, "say48k.wav")
+        write_wav(wav, sig, 48000)
+        from audioflow_torch.io import read_audio
+
+        data, _ = read_audio(wav)
+        pcm = chain(VadGate(960), Resample(48000, 16000, "cubic"), input_rate=48000).compile()(data, device=dev)
+        want_i16 = np.frombuffer(pcm_f32_to_i16_bytes(pcm.cpu().numpy()), "<i2")
+        n_wire = -(-want_i16.size // 3200)
+        srv = ScribeServer([{"reply": True}])
+        lines = run_egress(wav, srv)
+        got_i16 = np.concatenate(srv.audio[0])
+        check(np.array_equal(got_i16, want_i16), "egress: the server's audio differs from the card's i16")
+        check(lines[-1] == {"chunks_sent": n_wire, "results": 2}, f"egress summary {lines[-1]}")
+        texts = [line.get("text") for line in lines[:-1]]
+        check(texts == ["turn", "turn it on"] and srv.configures == 1, f"egress transcript {texts}")
+        # one forced disconnect: the client reconnects, configures again and
+        # resumes; the chunks that reached the server are the card's, in order
+        srv2 = ScribeServer([{"drop_after_chunks": 3}, {"reply": True}])
+        lines2 = run_egress(wav, srv2)
+        chunks = [want_i16[i : i + 3200] for i in range(0, want_i16.size, 3200)]
+        it = iter(range(len(chunks)))
+        in_order = all(any(np.array_equal(c, chunks[j]) for j in it) for conn in srv2.audio for c in conn)
+        received = sum(len(c) for c in srv2.audio)
+        texts2 = [line.get("text") for line in lines2[:-1]]
+        check(srv2.connections == 2 and srv2.configures == 2 and in_order and "turn it on" in texts2
+              and lines2[-1]["chunks_sent"] == n_wire, f"egress with a disconnect: {srv2.connections} connections, "
+              f"{srv2.configures} configures, in order {in_order}, transcript {texts2}, summary {lines2[-1]}")
+    print(f"phase 25 egress ({card}): `audioflow egress --vad-gate` of a {EGRESS_SECONDS:.0f} s 48 kHz WAV to a "
+          f"loopback server: {n_wire} chunks, the server's audio exactly the card's i16 ({want_i16.size} samples), "
+          f"transcript {texts}; with a drop after 3 chunks: {srv2.connections} connections, {srv2.configures} "
+          f"configures, {received} of {n_wire} chunks received in order, transcript {texts2}")
+    return out
 
 
 def main() -> int:
@@ -1071,30 +1381,36 @@ def main() -> int:
 
     launches5 = configs_3_and_5(dev, card)
     files = file_path(dev, card)
+    dict_out = dictation(dev, card)
+    lv = dict_out["launches_validate"]
 
     print(json.dumps({"kernels": [
         {
             "name": "melspec", "route": "cuda", "source": "audioflow_torch/csrc/melspec.cu",
             "replaces": "audioflow_tpu/ops/pallas/melspec.py:137", "launches": launches,
-            "launches_config5": launches5, **files,
+            "launches_config5": launches5, **files, "launches_session": dict_out["launches_session"],
+            "launches_dictation": dict_out["launches_dictation"], "launches_validate": lv["melspec"],
             "max_abs_err": kernel_err, "ms": k_ms, "ms_readings": k_t[1], "plain_ms": p_ms,
             "bound_ms": ms_bound, "bound_by": ms_by, "library_ms": None, "path": ms_path, "cufft_ms": c_ms,
         },
         {
             "name": "timestretch", "route": "cuda", "source": "audioflow_torch/csrc/timestretch.cu",
             "replaces": "audioflow_tpu/ops/pallas/timestretch.py:358", "launches": ts_launches,
+            "launches_validate": lv["timestretch"],
             "max_abs_err": ts_err, "ms": ts_ms, "ms_readings": ts_t[1], "plain_ms": tp_ms,
             "bound_ms": ts_bound, "bound_by": ts_by, "library_ms": None, "path": ts_path, "cufft_ms": tc_ms,
         },
         {
             "name": "griffinlim", "route": "cuda", "source": "audioflow_torch/csrc/griffinlim.cu",
             "replaces": "audioflow_tpu/ops/pallas/griffinlim.py:216", "launches": gl_launches,
+            "launches_validate": lv["griffinlim"],
             "max_abs_err": gl_err, "ms": gk_ms, "ms_readings": gk_t[1], "plain_ms": gp_ms,
             "bound_ms": gl_bound, "bound_by": gl_by, "library_ms": None, "path": gl_path, "cufft_ms": gc_ms,
         },
         {
             "name": "viterbi", "route": "cuda", "source": "audioflow_torch/csrc/viterbi.cu",
             "replaces": "audioflow_tpu/ops/pallas/viterbi.py:124", "launches": vit_launches,
+            "launches_validate": lv["viterbi"],
             "max_abs_err": vit_err, "ms": vk_ms, "ms_readings": vk_t[1], "plain_ms": vp_ms,
             "bound_ms": vit_bound, "bound_by": vit_by, "library_ms": None, "cluster": vit_cluster,
         },

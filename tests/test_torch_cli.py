@@ -3,7 +3,8 @@
 ``run --device cpu`` must print the JAX CLI's JSON line: every field equal
 except the times (wall, compile and the two realtime factors), and the
 outputs within 5e-4 in log-mel space and 1e-5 in sample space (the graphs'
-port tolerances, ``test_torch_master.py``).
+port tolerances, ``test_torch_master.py``), VAD states exactly and i16
+after the resampler within 1 LSB.
 """
 
 import dataclasses
@@ -45,8 +46,8 @@ def _run(main, capsys, args, out):
 @pytest.mark.parametrize(
     "graph,rate,batch,tol",
     [("logmel", 44100, "2", 5e-4), ("master", 16000, "2", 1e-5), ("logmel", 44100, None, 5e-4),
-     ("stft", 16000, None, 1e-5)],
-    ids=["logmel-batches", "master-batches", "logmel-whole", "stft-whole"],
+     ("stft", 16000, None, 1e-5), ("vad", 16000, "2", 0), ("wire", 48000, None, 1)],
+    ids=["logmel-batches", "master-batches", "logmel-whole", "stft-whole", "vad-batches", "wire-whole"],
 )
 def test_run_matches_jax_cli(tmp_path, capsys, graph, rate, batch, tol):
     inputs = _files(tmp_path, rate, bad=batch is not None)
@@ -88,7 +89,7 @@ def test_run_spec_from_jax_config5(tmp_path, capsys):
 def test_run_refusals(tmp_path, capsys):
     inputs = _files(tmp_path, 16000, n=2, bad=False)
     with pytest.raises(SystemExit, match="not yet ported"):
-        tmain(["run", "-i", inputs, "-g", "vad", "--device", "cpu"])
+        tmain(["run", "-i", inputs, "-g", "kws", "--device", "cpu"])
     with pytest.raises(SystemExit, match="--sharded"):
         tmain(["run", "-i", inputs, "--sharded", "--device", "cpu"])
     if not torch.cuda.is_available():  # --device defaults to the card

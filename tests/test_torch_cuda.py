@@ -553,3 +553,51 @@ def test_cli_run_defaults_to_the_card(cuda_device, tmp_path, capsys):
     # the melspec kernel launches only on tensors on the card
     assert melspec.COUNT.launches > before
     assert np.isfinite(np.load(out)).all()
+
+
+# ------------------------------------------------------------ the dictation path
+
+def test_quantize_and_vad_scan_on_the_card_equal_the_cpu(cuda_device):
+    """quantize_i16 maps NaN to 0 and +-inf to +-32767 on the card as on the
+    CPU; vad_scan's states on the card equal the CPU's on frames whose levels
+    stay clear of the threshold."""
+    from audioflow_torch.ops import quantize_i16, vad_scan
+
+    x = torch.tensor([np.nan, np.inf, -np.inf, 0.99999, -0.99999, 1.5, -1.5, 0.25, 0.0])
+    q = quantize_i16(x.to(cuda_device)).cpu()
+    assert torch.equal(q, quantize_i16(x)) and q[:4].tolist() == [0, 32767, -32767, 32766]
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy((rng.standard_normal((8, 200, 320)) * rng.choice([1e-5, 0.1], (8, 200, 1)))
+                              .astype(np.float32))
+    c_cpu, s_cpu = vad_scan(frames)
+    c_gpu, s_gpu = vad_scan(frames.to(cuda_device))
+    assert torch.equal(s_gpu.cpu(), s_cpu) and torch.equal(c_gpu.state.cpu(), c_cpu.state)
+
+
+def test_session_on_the_card_equals_scan_stream(cuda_device, tmp_path):
+    """Ragged pushes through the dictation fork on the card: results equal
+    Fork.scan_stream exactly, the melspec kernel launches once a chunk and
+    once for the warm-up, and a snapshot restores on the CPU."""
+    from audioflow_torch.graph import LogMelSpec, QuantizeI16, Resample, Vad, VadGate, chain, fork
+    from audioflow_torch.session import StreamSession
+
+    f = fork(chain(Resample(48000, 16000), input_rate=48000),
+             wire=chain(VadGate(320), QuantizeI16(), input_rate=16000), vad=chain(Vad(320), input_rate=16000),
+             features=chain(LogMelSpec(1024, 256, 128, center=False), input_rate=16000))
+    rng = np.random.default_rng(1)
+    x = (0.2 * rng.standard_normal((4, 48000))).astype(np.float32)
+    before = melspec.COUNT.launches
+    s = StreamSession(f, lead_shape=(4,)).open()
+    for i in range(0, 24000, 1000):
+        s.push(x[:, i : i + 1000])
+    s.snapshot(tmp_path / "snap")
+    for i in range(24000, 48000, 1000):
+        s.push(x[:, i : i + 1000])
+    res = s.poll_all()
+    assert melspec.COUNT.launches - before == len(res) + 1 == 12 + 1
+    scan = f.scan_stream(torch.from_numpy(x[:, : 12 * s.chunk_in]).to(cuda_device), s.chunk_in)
+    for k in ("wire", "vad", "features"):
+        got = np.concatenate([r.data[k] for r in res], axis=1)
+        np.testing.assert_array_equal(got, scan[k].cpu().numpy())
+    cpu = StreamSession(f, lead_shape=(4,), device="cpu").restore(tmp_path / "snap")
+    assert cpu._chunk_index == 6 and cpu._pending == 24000 - 6 * s.chunk_in

@@ -120,7 +120,20 @@ def test_spectrogram_matches_jax(rng, center, power):
         jops.spectrogram(jnp.asarray(x), 1024, 256, center=center, power=power, precision="highest")
     )
     assert got.shape == want.shape
-    np.testing.assert_allclose(got / want.max(), want / want.max(), atol=1e-5)
+    np.testing.assert_allclose(got / want.max(), want / want.max(), atol=1e-5,
+                               err_msg=_worst_frame(got / want.max(), want / want.max(), 1e-5))
+
+
+def _worst_frame(got, want, tol):
+    """Where two spectrograms ``[row, frame, bin]`` differ most, which frames
+    are past ``tol``, and the intra-op threads (ROADMAP C2, C3: the CPU's
+    sgemm rounds differently with the thread count)."""
+    d = np.abs(got - want)
+    worst = np.unravel_index(int(np.argmax(d)), d.shape)
+    frames = sorted({(int(r), int(f)) for r, f, _ in zip(*np.nonzero(d > tol))})
+    return (f"worst (row, frame, bin) {tuple(int(i) for i in worst)}: {got[worst]} vs {want[worst]}; "
+            f"{(d > tol).mean():.4f} of the elements past {tol}, in (row, frame) {frames[:40]}; "
+            f"torch threads {torch.get_num_threads()}")
 
 
 def test_spectrogram_matches_jax_after_the_jax_cli(tmp_path, capsys):

@@ -1,0 +1,78 @@
+"""The port's validate report on the CPU against the JAX package's, which is
+computed once for the module (about 30 s on a CPU).
+
+The port reports the 15 rows whose ops it has, on the same seeded inputs
+(the same draws, in the same order) with the same oracles and budgets, and
+names the 8 rows it has not ported. The discrete rows equal the JAX
+package's, every row is inside its budget, and each float row is within
+1e-5 of the JAX value, except three rows that compare two algorithms
+within each package, whose halves differ between the packages by design:
+``pvoc_pallas_vs_xla_rel`` and ``melspec_pallas_vs_xla_logmel`` (the JAX
+kernels at their shipped bf16x3 "high" tier against the port's fp32 plain
+versions) and ``griffinlim_tone_err`` (16 iterations of a chaotic map,
+within 1e-3 relative); those are held to their budgets."""
+
+import json
+
+import numpy as np
+import pytest
+
+from audioflow_torch.cli import main as tmain
+from audioflow_torch.validate import BUDGETS, ROWS_MISSING, run_validation, within_budget
+
+DISCRETE = ("quantize_i16", "vad_state_mismatches")
+BY_DESIGN = ("pvoc_pallas_vs_xla_rel", "melspec_pallas_vs_xla_logmel", "griffinlim_tone_err")
+
+
+@pytest.fixture(scope="module")
+def jax_report():
+    from audioflow_tpu.validate import run_validation as jax_validation
+
+    return jax_validation()
+
+
+@pytest.fixture(scope="module")
+def port_report():
+    return run_validation(device="cpu")
+
+
+def test_report_rows(jax_report, port_report):
+    rows = set(port_report) - {"max_abs_err", "pass", "rows_missing"}
+    assert len(rows) == 15 and len(ROWS_MISSING) == 8
+    assert set(port_report["rows_missing"]) == set(jax_report) - set(port_report) == set(ROWS_MISSING)
+    assert rows | set(ROWS_MISSING) | {"max_abs_err", "pass"} == set(jax_report)
+
+
+def test_rows_match_jax_and_budgets(jax_report, port_report):
+    for k in DISCRETE:
+        assert port_report[k] == jax_report[k] == 0
+    for k, v in port_report.items():
+        if k in ("pass", "rows_missing"):
+            continue
+        assert within_budget(k, v), (k, v, BUDGETS.get(k))
+        if k in DISCRETE:
+            continue
+        if k == "griffinlim_tone_err":
+            assert v == pytest.approx(jax_report[k], rel=1e-3)
+        elif k not in BY_DESIGN:
+            assert abs(v - jax_report[k]) <= 1e-5, (k, v, jax_report[k])
+    assert port_report["max_abs_err"] == max(port_report[k] for k in (
+        "resample_kaiser", "resample_cubic", "biquad_chain", "stft_magnitude", "spectrogram_matmul", "mel_project"))
+    assert port_report["pass"] is True and jax_report["pass"] is True
+
+
+def test_a_row_over_budget_fails_the_report():
+    assert not within_budget("max_abs_err", 2e-4) and not within_budget("quantize_i16", 1)
+    assert within_budget("griffinlim_tone_err", 0.19) and not within_budget("griffinlim_tone_err", 0.2)
+
+
+def test_cli_validate_prints_the_report(capsys, port_report):
+    capsys.readouterr()
+    assert tmain(["validate", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out.keys() == port_report.keys()
+    for k, v in port_report.items():
+        if isinstance(v, float):
+            assert np.isclose(out[k], v, rtol=1e-6, atol=0), k
+        else:
+            assert out[k] == v
