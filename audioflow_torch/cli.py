@@ -11,8 +11,11 @@ Mirrors ``audioflow_tpu/cli.py`` for the subcommands ported so far:
   egress             a file through the dictation path to a WebSocket ASR endpoint
   vad                VAD segments of a file
   validate           numerics against float64 oracles, the JAX package's budgets
+  separate           blind NMF source separation -> one WAV per component
+  loudness           BS.1770/R128 loudness meter (and optional normalizer)
 
-``run``, ``stream``, ``egress``, ``vad`` and ``validate`` compute on
+``run``, ``stream``, ``egress``, ``vad``, ``validate``, ``separate`` and
+``loudness`` compute on
 ``--device`` ("cuda" unless given; without a card they fail with
 DEVICE_NOT_FOUND rather than carry on on the CPU). Their output is the JAX
 CLI's JSON.
@@ -47,9 +50,13 @@ _GRAPHS = (
 
 
 def _build_graph(name: str, input_rate: int, cfg, streaming: bool = False):
+    from .graph import Chroma, SpectralContrast, SpectralFeatures, Spectrogram, Tonnetz, chain
     from .models import (
+        delta_fbank_frontend,
+        denoise_master_chain,
         eq_chain_graph,
         kaldi_fbank_frontend,
+        kws_frontend,
         log_mel_frontend,
         master_chain_graph,
         stft_magnitude_graph,
@@ -72,6 +79,26 @@ def _build_graph(name: str, input_rate: int, cfg, streaming: bool = False):
         return wire_egress_graph(input_rate, a.target_rate)
     if name == "fbank":
         return kaldi_fbank_frontend(input_rate, n_mels=a.n_mels)
+    if name == "kws":
+        return kws_frontend(input_rate, a.n_fft, a.hop)
+    if name == "deltafbank":
+        return delta_fbank_frontend(input_rate)
+    if name == "denoise":
+        return denoise_master_chain(input_rate)
+    if name == "features":
+        return chain(
+            Spectrogram(a.n_fft, a.hop, center=False, power=False),
+            SpectralFeatures(("centroid", "bandwidth", "rolloff", "flatness", "flux"), n_bins=a.n_fft // 2 + 1),
+            input_rate=input_rate,
+        )
+    if name == "chroma":
+        return chain(Spectrogram(a.n_fft, a.hop, center=False, power=True), Chroma(), input_rate=input_rate)
+    if name == "contrast":
+        return chain(Spectrogram(a.n_fft, a.hop, center=False, power=False), SpectralContrast(), input_rate=input_rate)
+    if name == "tonnetz":
+        return chain(
+            Spectrogram(a.n_fft, a.hop, center=False, power=True), Chroma(), Tonnetz(), input_rate=input_rate
+        )
     if name in _GRAPHS:
         raise SystemExit(f"graph {name!r} is not yet ported to audioflow_torch")
     raise SystemExit(f"unknown graph {name!r}; known: {_GRAPHS}")
@@ -429,6 +456,72 @@ def cmd_validate(args) -> int:
     return 0 if report["pass"] else 1
 
 
+def cmd_separate(args) -> int:
+    """Blind NMF source separation: one WAV per component. STFT -> NMF of
+    the magnitude -> soft masks -> ISTFT (``ops.nmf_separate``); the
+    components sum back to the input."""
+    from . import ops
+    from .io import write_wav
+    from .utils import as_tensor
+
+    data, rate = _read_mono(args.input)
+    comps, _, w = ops.nmf_separate(
+        as_tensor(data, args.device), args.components, args.n_fft, args.hop, n_iter=args.iterations
+    )
+    comps, w = comps.cpu().numpy(), w.cpu().numpy()
+    base, _ = os.path.splitext(args.output or args.input)
+    outs = []
+    for k in range(comps.shape[0]):
+        path = f"{base}.comp{k}.wav"
+        write_wav(path, comps[k].astype(np.float32), rate)
+        outs.append(path)
+    peak_bins = [int(np.argmax(w[k])) for k in range(comps.shape[0])]
+    print(json.dumps({
+        "components": outs,
+        "template_peak_hz": [round(b * rate / args.n_fft, 1) for b in peak_bins],
+        "residual_rel": round(float(
+            np.linalg.norm(comps.sum(0) - data[: comps.shape[1]]) / max(np.linalg.norm(data), 1e-9)), 6),
+    }))
+    return 0
+
+
+def cmd_loudness(args) -> int:
+    """BS.1770-4 / EBU R128 loudness meter (and optional normalizer). Per
+    file: integrated LUFS (gated), loudness range (LU), true peak (dBTP),
+    max momentary and short-term. With --normalize-to, writes a
+    gain-normalized copy next to each input (or into --out-dir)."""
+    from . import ops
+    from .io import write_wav
+    from .utils import as_tensor
+
+    results = []
+    for p in _expand_inputs(args.inputs):
+        data, rate = _read_mono(p)
+        x = as_tensor(data, args.device)
+        long = data.shape[-1] >= 3 * rate
+        row = {
+            "file": p,
+            "sample_rate": rate,
+            "seconds": round(data.shape[-1] / rate, 3),
+            "integrated_lufs": round(float(ops.integrated_loudness(x, rate)), 2),
+            "lra_lu": round(float(ops.loudness_range(x, rate)), 2) if long else None,
+            "true_peak_dbtp": round(float(ops.true_peak(x, rate)), 2),
+            "max_momentary_lufs": round(float(ops.momentary_loudness(x, rate).max()), 2),
+        }
+        if long:
+            row["max_shortterm_lufs"] = round(float(ops.shortterm_loudness(x, rate).max()), 2)
+        if args.normalize_to is not None:
+            y = ops.normalize_loudness(x, rate, args.normalize_to, args.true_peak_max)
+            stem, _ = os.path.splitext(os.path.basename(p))
+            out = os.path.join(args.out_dir or os.path.dirname(p) or ".", f"{stem}.normalized.wav")
+            write_wav(out, y.cpu().numpy(), rate)
+            row["normalized"] = out
+            row["normalized_lufs"] = round(float(ops.integrated_loudness(y, rate)), 2)
+        results.append(row)
+        print(json.dumps(row))
+    return 0 if results else 1
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="audioflow", description=__doc__.split("\n")[0])
     p.add_argument("--log-level", default="info")
@@ -511,6 +604,26 @@ def main(argv: list[str] | None = None) -> int:
     val = sub.add_parser("validate", help="numerics validation report")
     val.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
     val.set_defaults(fn=cmd_validate)
+
+    sp = sub.add_parser("separate", help="blind NMF source separation -> per-component wavs")
+    sp.add_argument("-i", "--input", required=True)
+    sp.add_argument("-o", "--output", default=None, help="output basename (default: input)")
+    sp.add_argument("-k", "--components", type=int, default=2)
+    sp.add_argument("--n-fft", type=int, default=1024)
+    sp.add_argument("--hop", type=int, default=256)
+    sp.add_argument("--iterations", type=int, default=200)
+    sp.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+    sp.set_defaults(fn=cmd_separate)
+
+    lo = sub.add_parser("loudness", help="BS.1770/R128 loudness meter (+ optional normalize)")
+    lo.add_argument("inputs", nargs="+", help="audio files or globs")
+    lo.add_argument("--normalize-to", type=float, default=None, metavar="LUFS",
+                    help="write a gain-normalized copy at this integrated loudness")
+    lo.add_argument("--true-peak-max", type=float, default=-1.0, metavar="DBTP",
+                    help="ceiling for --normalize-to (default -1 dBTP; R128)")
+    lo.add_argument("--out-dir", default=None, help="directory for normalized copies")
+    lo.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+    lo.set_defaults(fn=cmd_loudness)
 
     args = p.parse_args(argv)
     setup_logging(args.log_level)

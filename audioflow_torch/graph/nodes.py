@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..errors import AudioError, ErrorCode
-from ..ops import dynamics
+from ..ops import decompose, dynamics, effects, features, fir, loudness
 from ..ops import vad as _vad
 from ..ops.biquad import Biquad, iir_apply, make_iir_plan
 from ..ops.framing import overlap_add
@@ -1241,3 +1241,491 @@ class Mix(Node):
             new_pads.append(pend)
             outs.append(y)
         return (tuple(new_states), tuple(new_pads)), self._merge(outs)
+
+
+# --- mastering, effects and feature families ---------------------------------
+
+
+@register_node
+@dataclass(frozen=True)
+class Fir(Node):
+    """Causal FIR filter (``ops/fir.py``): designed windowed-sinc
+    (kind/num_taps/cutoff) or explicit ``taps``. The prehistory carry makes
+    streaming exact with zero latency; long kernels go through FFT fast
+    convolution."""
+
+    kind: str = "lowpass"
+    num_taps: int = 101
+    cutoff: tuple = (4000.0,)
+    window: str = "hamming"
+    taps: tuple | None = None  # explicit taps override the design
+    sample_rate: int | None = None
+
+    def _h(self, device) -> torch.Tensor:
+        if self.taps is not None:
+            return torch.tensor(self.taps, dtype=torch.float32, device=device)
+        if self.sample_rate is None:
+            raise AudioError("Fir.sample_rate unresolved; set input_rate on the graph")
+        cut = self.cutoff if len(self.cutoff) > 1 else self.cutoff[0]
+        return on_device(fir.cached_design(self.num_taps, cut, self.sample_rate, self.kind, self.window), device)
+
+    def apply(self, x):
+        return fir.fir_apply(x, self._h(x.device))[0]
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        k = len(self.taps) if self.taps is not None else self.num_taps
+        return torch.zeros((*lead_shape, k - 1), dtype=dtype, device=device)
+
+    def step(self, carry, chunk):
+        y, zf = fir.fir_apply(chunk, self._h(chunk.device), zi=carry)
+        return zf, y
+
+
+@register_node
+@dataclass(frozen=True)
+class LoudnessNormalize(Node):
+    """EBU R128 loudness normalization: a pure gain to ``target_lufs``
+    integrated loudness (the BS.1770-4 gated meter), optionally capped at a
+    true-peak ceiling. Per-utterance two-pass: offline only, like
+    :class:`Cmvn`."""
+
+    target_lufs: float = -23.0
+    max_true_peak_db: float | None = -1.0
+    sample_rate: int | None = None
+    streamable = False
+
+    def apply(self, x):
+        if self.sample_rate is None:
+            raise AudioError("LoudnessNormalize.sample_rate unresolved; set input_rate on the graph")
+        return loudness.normalize_loudness(x, self.sample_rate, self.target_lufs, self.max_true_peak_db)
+
+
+@register_node
+@dataclass(frozen=True)
+class Hpss(Node):
+    """Harmonic/percussive separation (``ops/decompose.py``); emits the
+    chosen component. The median filters span the whole time axis: offline
+    only."""
+
+    component: str = "harmonic"  # or "percussive"
+    n_fft: int = 1024
+    hop: int = 256
+    kernel_time: int = 17
+    kernel_freq: int = 17
+    margin: float = 1.0
+    streamable = False
+
+    def __post_init__(self):
+        if self.component not in ("harmonic", "percussive"):
+            raise AudioError(
+                f"Hpss.component must be 'harmonic' or 'percussive', got {self.component!r}",
+                code=ErrorCode.CONFIG_VALIDATION_ERROR,
+            )
+
+    def apply(self, x):
+        y_h, y_p = decompose.hpss(
+            x, self.n_fft, self.hop, kernel_time=self.kernel_time, kernel_freq=self.kernel_freq, margin=self.margin
+        )
+        return y_h if self.component == "harmonic" else y_p
+
+
+@register_node
+@dataclass(frozen=True)
+class SpectralGate(Node):
+    """Stationary-noise spectral gating denoiser (``ops/decompose.py``). The
+    noise profile comes from the signal's own quietest frames, a
+    whole-signal statistic: offline only."""
+
+    n_fft: int = 1024
+    hop: int = 256
+    n_std: float = 1.5
+    prop_decrease: float = 1.0
+    quantile: float = 0.1
+    streamable = False
+
+    def apply(self, x):
+        return decompose.spectral_gate(
+            x, self.n_fft, self.hop, n_std=self.n_std, prop_decrease=self.prop_decrease, quantile=self.quantile
+        )
+
+
+def _n_fft(frames: torch.Tensor) -> int:
+    return 2 * (frames.shape[-1] - 1)
+
+
+@register_node
+@dataclass(frozen=True)
+class SpectralFeatures(Node):
+    """Magnitude frames -> stacked spectral descriptors
+    ``[..., F, len(features)]`` (``ops/features.py``). Feed from
+    ``Spectrogram(power=False)``. Stateless per frame except "flux", which
+    compares with the previous frame: streaming it needs ``n_bins`` (to
+    size the previous-frame carry), and ``wants_first_index`` makes the
+    stream's offline frame 0 flux against itself, as offline."""
+
+    features: tuple = ("centroid", "bandwidth", "rolloff", "flatness")
+    sample_rate: int | None = None
+    n_bins: int | None = None
+
+    domain_in = "frames"
+    domain_out = "frames"
+    wants_first_index = True
+
+    @property
+    def streamable(self):
+        return "flux" not in self.features or self.n_bins is not None
+
+    def _rate(self):
+        if self.sample_rate is None:
+            raise AudioError("SpectralFeatures.sample_rate unresolved; set input_rate on the graph")
+        return self.sample_rate
+
+    def apply(self, x):
+        return features.spectral_features(x, self._rate(), _n_fft(x), tuple(self.features))
+
+    def validate_chunk(self, n_in):
+        super().validate_chunk(n_in)
+        if "flux" in self.features and self.n_bins is None:
+            raise AudioError(
+                "SpectralFeatures: streaming 'flux' needs n_bins (the spectrogram bin count) to size the "
+                "prev-frame carry",
+                code=ErrorCode.CONFIG_VALIDATION_ERROR,
+            )
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        if "flux" not in self.features:
+            return None
+        return torch.zeros((*lead_shape, 1, self.n_bins), dtype=dtype, device=device)
+
+    def step(self, carry, chunk, first_index=None):
+        if carry is None:  # no flux: stateless per frame
+            return None, self.apply(chunk)
+        cols = []
+        for name in self.features:
+            if name == "flux":
+                f = features.spectral_flux(chunk, prev=carry)
+                if first_index is not None and 0 <= first_index < chunk.shape[-2]:
+                    f = f.clone()
+                    f[..., first_index] = 0.0
+                cols.append(f)
+            else:
+                cols.append(features.spectral_features(chunk, self._rate(), _n_fft(chunk), (name,))[..., 0])
+        return chunk[..., -1:, :], torch.stack(cols, dim=-1)
+
+
+@register_node
+@dataclass(frozen=True)
+class Chroma(Node):
+    """Power frames -> chromagram ``[..., F, n_chroma]`` (pitch classes,
+    ``ops/features.py::chroma``, C = index 0). Stateless per frame (the
+    ``norm`` max is within the frame). Feed from
+    ``Spectrogram(power=True)``."""
+
+    n_chroma: int = 12
+    norm: bool = True
+    tuning: float = 0.0
+    sample_rate: int | None = None
+
+    domain_in = "frames"
+    domain_out = "frames"
+
+    def apply(self, x):
+        if self.sample_rate is None:
+            raise AudioError("Chroma.sample_rate unresolved; set input_rate on the graph")
+        return features.chroma(x, self.sample_rate, _n_fft(x), self.n_chroma, self.norm, self.tuning)
+
+
+@register_node
+@dataclass(frozen=True)
+class SpectralContrast(Node):
+    """Magnitude frames -> octave-band spectral contrast
+    ``[..., F, n_bands + 1]`` in dB (``ops/features.py``). Stateless per
+    frame. Feed from ``Spectrogram(power=False)``."""
+
+    n_bands: int = 6
+    fmin: float = 200.0
+    quantile: float = 0.02
+    sample_rate: int | None = None
+
+    domain_in = "frames"
+    domain_out = "frames"
+
+    def apply(self, x):
+        if self.sample_rate is None:
+            raise AudioError("SpectralContrast.sample_rate unresolved; set input_rate on the graph")
+        return features.spectral_contrast(x, self.sample_rate, _n_fft(x), self.n_bands, self.fmin, self.quantile)
+
+
+@register_node
+@dataclass(frozen=True)
+class Tonnetz(Node):
+    """Chroma frames -> 6-D tonal centroids ``[..., F, 6]``
+    (``ops/features.py::tonnetz``). Stateless per frame. Feed from
+    :class:`Chroma`."""
+
+    domain_in = "frames"
+    domain_out = "frames"
+
+    def apply(self, x):
+        return features.tonnetz(x)
+
+
+@register_node
+@dataclass(frozen=True)
+class Pcen(Node):
+    """Per-channel energy normalization of mel or linear energies (frames
+    domain). The offline warm start (M[0] = E[0]) depends on position, so
+    streaming uses ``wants_first_index`` to reseed M at the stream's offline
+    frame 0, as Preemphasis does for its edge. Streaming needs ``n_bins``
+    (the feature width) to size the M carry; without it the node is offline
+    only."""
+
+    smooth: float = 0.025
+    alpha: float = 0.98
+    delta: float = 2.0
+    r: float = 0.5
+    eps: float = 1e-6
+    n_bins: int | None = None
+    domain_in = "frames"
+    domain_out = "frames"
+    wants_first_index = True
+
+    @property
+    def streamable(self):
+        return self.n_bins is not None
+
+    def apply(self, x):
+        return features.pcen(x, self.smooth, self.alpha, self.delta, self.r, self.eps)
+
+    def validate_chunk(self, n_in):
+        super().validate_chunk(n_in)
+        if self.n_bins is None:
+            raise AudioError(
+                "Pcen: streaming needs n_bins (the feature width) to size the smoother carry",
+                code=ErrorCode.CONFIG_VALIDATION_ERROR,
+            )
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        return torch.zeros((*lead_shape, self.n_bins), dtype=dtype, device=device)
+
+    def step(self, carry, chunk, first_index=None):
+        m, m_last = features.pcen_smoother(chunk, self.smooth, m_prev=carry, first_index=first_index)
+        return m_last, features.pcen_output(chunk, m, self.alpha, self.delta, self.r, self.eps)
+
+
+@register_node
+@dataclass(frozen=True)
+class Deltas(Node):
+    """Regression deltas appended to features: [static, d, dd, ...] along
+    the feature axis (``ops/features.py::add_deltas``).
+
+    Streaming (orders=(1,) with ``n_bins`` set): the regression window reads
+    width//2 future frames, so the node declares that latency and carries
+    the last width-1 raw frames; the offline edge replication at the
+    stream's frame 0 comes from clipping window indices at the
+    ``wants_first_index`` position. Higher orders replicate the intermediate
+    delta sequence's edges offline, which has no constant-latency streaming
+    form: offline only."""
+
+    width: int = 9
+    orders: tuple = (1, 2)
+    n_bins: int | None = None
+    domain_in = "frames"
+    domain_out = "frames"
+    wants_first_index = True
+
+    @property
+    def streamable(self):
+        return tuple(self.orders) == (1,) and self.n_bins is not None
+
+    def apply(self, x):
+        return features.add_deltas(x, self.width, tuple(self.orders))
+
+    def validate_chunk(self, n_in):
+        super().validate_chunk(n_in)
+        if not self.streamable:
+            raise AudioError(
+                "Deltas: streaming needs orders=(1,) and n_bins set (higher orders edge-replicate the "
+                "intermediate delta sequence, which has no constant-latency streaming form)",
+                code=ErrorCode.CONFIG_VALIDATION_ERROR,
+            )
+
+    def latency(self, n_in):
+        return self.width // 2
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        return torch.zeros((*lead_shape, self.width - 1, self.n_bins), dtype=dtype, device=device)
+
+    def step(self, carry, chunk, first_index=None):
+        w = self.width
+        buf = torch.cat([carry, chunk], dim=-2)  # [.., w-1+m, nb]
+        m = chunk.shape[-2]
+        # window j reads buf[j .. j+w-1]
+        idx = torch.arange(m, device=chunk.device)[:, None] + torch.arange(w, device=chunk.device)[None, :]
+        if first_index is not None:
+            # offline edge replication: frames before the stream's frame 0
+            # (buf position first_index + w - 1) read that frame instead
+            idx = torch.clamp_min(idx, first_index + w - 1)
+        idx = torch.clamp_max(idx, buf.shape[-2] - 1)
+        win = buf.index_select(-2, idx.reshape(-1)).reshape(*buf.shape[:-2], m, w, buf.shape[-1])
+        taps = features.delta_taps(w, chunk.device, chunk.dtype)
+        d1 = (win * taps[:, None]).sum(dim=-2)
+        static = win[..., w // 2, :]  # the center frame, latency-aligned
+        return buf[..., m:, :], torch.cat([static, d1], dim=-1)
+
+
+@register_node
+@dataclass(frozen=True)
+class Delay(Node):
+    """Feedback delay / echo (``ops/effects.py::feedback_delay``): a host loop
+    over D-sample blocks. Streaming carries the last D samples of input and
+    wet line, so streamed equals offline exactly at any chunk size."""
+
+    delay_s: float = 0.25
+    feedback: float = 0.4
+    mix: float = 0.5
+    sample_rate: int | None = None
+
+    def _d(self):
+        if self.sample_rate is None:
+            raise AudioError("Delay.sample_rate unresolved; set input_rate on the graph")
+        d = int(round(self.delay_s * self.sample_rate))
+        if d < 1:
+            raise AudioError(
+                f"Delay: delay_s {self.delay_s} is under one sample at {self.sample_rate} Hz",
+                code=ErrorCode.CONFIG_VALIDATION_ERROR,
+            )
+        return d
+
+    def apply(self, x):
+        return effects.feedback_delay(x, self._d(), self.feedback, self.mix)[0]
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        d = self._d()
+        return (
+            torch.zeros((*lead_shape, d), dtype=dtype, device=device),
+            torch.zeros((*lead_shape, d), dtype=dtype, device=device),
+        )
+
+    def step(self, carry, chunk):
+        y, carry = effects.feedback_delay(chunk, self._d(), self.feedback, self.mix, carry)
+        return carry, y
+
+
+@register_node
+@dataclass(frozen=True)
+class Tremolo(Node):
+    """Amplitude LFO (``ops/effects.py::tremolo``). The gain depends on the
+    absolute sample position, so the node takes ``first_index`` and streamed
+    chunks reproduce the offline LFO phase exactly."""
+
+    rate_hz: float = 5.0
+    depth: float = 0.5
+    phase: float = 0.0
+    sample_rate: int | None = None
+    wants_first_index = True
+
+    def _rate(self):
+        if self.sample_rate is None:
+            raise AudioError("Tremolo.sample_rate unresolved; set input_rate on the graph")
+        return self.sample_rate
+
+    def apply(self, x):
+        return effects.tremolo(x, self._rate(), self.rate_hz, self.depth, self.phase)
+
+    def step(self, carry, chunk, first_index=None):
+        t0 = 0 if first_index is None else -first_index
+        return carry, effects.tremolo(chunk, self._rate(), self.rate_hz, self.depth, self.phase, t0)
+
+
+@dataclass(frozen=True)
+class _ModTapNode(Node):
+    """Shared by the LFO-modulated delays: the carry is the last Dmax input
+    samples (zeros offline), the absolute position comes from
+    ``first_index``.
+
+    The interpolation weights are computed from a chunk-local index origin,
+    so streamed output agrees with offline to fp32 rounding of the read
+    position (about 1e-3 absolute on unit-scale audio), not bit for bit: the
+    JAX package's one documented exception to its streamed-equals-offline
+    rule."""
+
+    sample_rate: int | None = None
+    wants_first_index = True
+
+    def _rate(self):
+        if self.sample_rate is None:
+            raise AudioError(f"{type(self).__name__}.sample_rate unresolved; set input_rate on the graph")
+        return self.sample_rate
+
+    def _dmax(self):
+        return effects.history_len(self._rate(), self._base(), self.depth_s)
+
+    def _base(self):
+        return 0.0
+
+    def _apply_tap(self, x, t0, history):
+        raise NotImplementedError
+
+    def apply(self, x):
+        return self._apply_tap(x, 0, None)
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        return torch.zeros((*lead_shape, self._dmax()), dtype=dtype, device=device)
+
+    def step(self, carry, chunk, first_index=None):
+        t0 = 0 if first_index is None else -first_index
+        y = self._apply_tap(chunk, t0, carry)
+        return torch.cat([carry, chunk], dim=-1)[..., -self._dmax() :], y
+
+
+@register_node
+@dataclass(frozen=True)
+class Vibrato(_ModTapNode):
+    """Pitch LFO (``ops/effects.py::vibrato``)."""
+
+    rate_hz: float = 5.0
+    depth_s: float = 0.002
+    phase: float = 0.0
+
+    def _apply_tap(self, x, t0, history):
+        return effects.vibrato(x, self._rate(), self.rate_hz, self.depth_s, self.phase, t0, history)
+
+
+@register_node
+@dataclass(frozen=True)
+class Chorus(_ModTapNode):
+    """Multi-voice ensemble (``ops/effects.py::chorus``)."""
+
+    rate_hz: float = 0.8
+    depth_s: float = 0.003
+    base_delay_s: float = 0.02
+    voices: int = 3
+    mix: float = 0.5
+
+    def _base(self):
+        return self.base_delay_s
+
+    def _apply_tap(self, x, t0, history):
+        return effects.chorus(
+            x, self._rate(), self.rate_hz, self.depth_s, self.base_delay_s, self.voices, self.mix, t0, history
+        )
+
+
+@register_node
+@dataclass(frozen=True)
+class Flanger(_ModTapNode):
+    """Swept comb (``ops/effects.py::flanger``)."""
+
+    rate_hz: float = 0.25
+    depth_s: float = 0.002
+    base_delay_s: float = 0.001
+    mix: float = 0.5
+
+    def _base(self):
+        return self.base_delay_s
+
+    def _apply_tap(self, x, t0, history):
+        return effects.flanger(
+            x, self._rate(), self.rate_hz, self.depth_s, self.base_delay_s, self.mix, t0, history
+        )

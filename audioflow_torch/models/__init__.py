@@ -1,9 +1,12 @@
 """Standard pipeline constructors."""
 
 from .pipelines import (
+    delta_fbank_frontend,
+    denoise_master_chain,
     eq_bands_default,
     eq_chain_graph,
     kaldi_fbank_frontend,
+    kws_frontend,
     log_mel_frontend,
     master_chain_graph,
     stft_magnitude_graph,
@@ -13,5 +16,6 @@ from .pipelines import (
 
 __all__ = [
     "eq_bands_default", "eq_chain_graph", "kaldi_fbank_frontend", "log_mel_frontend", "master_chain_graph",
-    "stft_magnitude_graph", "vad_graph", "wire_egress_graph",
+    "stft_magnitude_graph", "vad_graph", "wire_egress_graph", "delta_fbank_frontend", "denoise_master_chain",
+    "kws_frontend",
 ]

@@ -8,13 +8,18 @@ from __future__ import annotations
 from ..graph import (
     BiquadChain,
     Cmvn,
+    Compressor,
+    Deltas,
     Graph,
     Limiter,
     LogMelSpec,
+    LoudnessNormalize,
     MelProject,
+    Pcen,
     Preemphasis,
     QuantizeI16,
     Resample,
+    SpectralGate,
     Spectrogram,
     Vad,
     chain,
@@ -128,6 +133,57 @@ def kaldi_fbank_frontend(
     if cmvn:
         nodes.append(Cmvn(norm_var=norm_var))
     return Graph(tuple(nodes), input_rate=sample_rate, name="kaldi_fbank")
+
+
+def kws_frontend(
+    sample_rate: int = 16000,
+    n_fft: int = 1024,
+    hop: int = 256,
+    n_mels: int = 40,
+    smooth: float = 0.025,
+) -> Graph:
+    """Keyword-spotting frontend: mel energies -> PCEN (Wang et al. 2017,
+    the trained-AGC alternative to log compression). Fully streamable: the
+    PCEN smoother carries M across chunks with the warm-start reseed."""
+    return Graph(
+        (
+            Spectrogram(n_fft, hop, center=False, power=True),
+            MelProject(n_mels=n_mels, log=None),
+            Pcen(smooth=smooth, n_bins=n_mels),
+        ),
+        input_rate=sample_rate,
+        name="kws_frontend",
+    )
+
+
+def delta_fbank_frontend(sample_rate: int = 16000, n_mels: int = 24, width: int = 9) -> Graph:
+    """Streaming ASR features: log-mel fbank + order-1 regression deltas
+    ([static, d] layout, width//2 frames of declared latency)."""
+    return Graph(
+        (
+            Spectrogram(1024, 256, center=False, power=True),
+            MelProject(n_mels=n_mels),
+            Deltas(width=width, orders=(1,), n_bins=n_mels),
+        ),
+        input_rate=sample_rate,
+        name="delta_fbank",
+    )
+
+
+def denoise_master_chain(sample_rate: int = 16000, target_lufs: float = -16.0, eq: tuple | None = None) -> Graph:
+    """Offline voice-mastering chain: spectral-gate denoise -> EQ ->
+    compressor -> loudness normalize to ``target_lufs`` (the podcast and
+    voice-over convention) under the R128 true-peak ceiling."""
+    return Graph(
+        (
+            SpectralGate(1024, 256, n_std=1.5, prop_decrease=0.9),
+            BiquadChain(tuple(eq) if eq else eq_bands_default(float(sample_rate))),
+            Compressor(threshold_db=-22.0, ratio=3.0, knee_db=6.0),
+            LoudnessNormalize(target_lufs=target_lufs, max_true_peak_db=-1.0),
+        ),
+        input_rate=sample_rate,
+        name="denoise_master",
+    )
 
 
 def vad_graph(

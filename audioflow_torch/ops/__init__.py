@@ -1,6 +1,6 @@
 """Signal ops of the port: plain torch on tensors, fp32 matmuls."""
 
-from . import biquad, dynamics, quantize, ring, vad
+from . import biquad, decompose, dynamics, effects, features, fir, loudness, quantize, ring, vad
 from .biquad import (
     Biquad,
     allpass,
@@ -34,8 +34,43 @@ from .dynamics import (
     to_mono,
     trim_silence,
 )
+from .effects import chorus, feedback_delay, flanger, tremolo, vibrato
+from .decompose import hpss, hpss_mask, median_filter, nmf, nmf_separate, noise_profile, spectral_gate
+from .features import (
+    add_deltas,
+    chroma,
+    chroma_filterbank,
+    contrast_bands,
+    delta,
+    fft_frequencies,
+    frame_rms,
+    pcen,
+    pcen_smoother,
+    spectral_bandwidth,
+    spectral_centroid,
+    spectral_contrast,
+    spectral_features,
+    spectral_flatness,
+    spectral_flux,
+    spectral_rolloff,
+    stack_memory,
+    tonnetz,
+    tonnetz_basis,
+    zero_crossing_rate,
+)
+from .fir import convolve, fir_apply, fir_design
 from .framing import frame, num_frames, overlap_add
 from .griffinlim import griffin_lim
+from .loudness import (
+    integrated_loudness,
+    k_weight,
+    k_weighting,
+    loudness_range,
+    momentary_loudness,
+    normalize_loudness,
+    shortterm_loudness,
+    true_peak,
+)
 from .mel import (
     apply_mel,
     dct_matrix,
@@ -71,4 +106,13 @@ __all__ = [
     "peaking", "phase_vocoder", "pitch_shift", "power", "preemphasis", "pyin", "pyin_frames", "resample",
     "rms_normalize", "spectrogram", "split_silence", "stft", "time_stretch", "to_mono", "transition_local",
     "trim_silence", "yin", "yin_frames", "yin_voicing",
+    # mastering, effects and features
+    "add_deltas", "chorus", "chroma", "chroma_filterbank", "contrast_bands", "convolve", "decompose", "delta",
+    "effects", "features", "feedback_delay", "fft_frequencies", "fir", "fir_apply", "fir_design", "flanger",
+    "frame_rms", "hpss", "hpss_mask", "integrated_loudness", "k_weight", "k_weighting", "loudness",
+    "loudness_range", "median_filter", "momentary_loudness", "nmf", "nmf_separate", "noise_profile",
+    "normalize_loudness", "pcen", "pcen_smoother", "shortterm_loudness", "spectral_bandwidth", "spectral_centroid",
+    "spectral_contrast", "spectral_features", "spectral_flatness", "spectral_flux", "spectral_gate",
+    "spectral_rolloff", "stack_memory", "tonnetz", "tonnetz_basis", "tremolo", "true_peak", "vibrato",
+    "zero_crossing_rate",
 ]

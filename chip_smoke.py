@@ -3,8 +3,11 @@
 Drives the port's ported paths through the hand-written CUDA kernels,
 BASELINE configs 3 and 5 through the biquad engine and the melspec kernel,
 the file path (decode, staging ring, batch runner, sinks) through
-``audioflow run``, the validate report, and the dictation path (stream
-session, VAD, i16 wire egress over a WebSocket), and checks them. The log-mel frontend
+``audioflow run``, the validate report, the dictation path (stream
+session, VAD, i16 wire egress over a WebSocket), and the mastering, effects
+and feature families (denoise mastering, keyword spotting, the effects
+chain, the feature graphs, the loudness meter, NMF separation), and checks
+them. The log-mel frontend
 ``log_mel_frontend(44100, 16000, 1024, 256, 128, center=False)`` streamed in
 14,112-sample chunks over a 512 x 10 s tone batch (kernel ``melspec``);
 BASELINE config 4, time-stretch and pitch-shift, offline through
@@ -106,8 +109,9 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
     batch, and the device busy share of the run under torch.profiler;
 22. the validate report: ``run_validation`` in the process with every
     kernel's launches counted from 0 (each row set launches a kernel), then
-    ``python -m audioflow_torch.cli validate`` in a subprocess: exit 0, 15
-    rows and the 8 missing listed, each row printed beside its budget;
+    ``python -m audioflow_torch.cli validate`` in a subprocess: exit 0, 17
+    rows and the 6 missing (the CQT's) listed, each row printed beside its
+    budget, ``loudness_997_anchor_lu`` and ``fir_direct`` among them;
 23. the stream session at the JAX bench's width (``bench.py:196-245``):
     ``StreamSession(log_mel_frontend(44100, 16000, 1024, 256, 128))`` with
     lead (64,) over 64 x 10 s of the tone batch, chunk 14,112, pushed a
@@ -128,7 +132,36 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
     ephemeral port): the server's audio exactly the i16 of the graph on the
     card, the chunk count and the transcript lines as sent; then once more
     with the server dropping the connection after 3 chunks: a reconnect,
-    the configure message again, the chunks that arrived in order.
+    the configure message again, the chunks that arrived in order;
+26. denoise mastering (voice-over and podcast batches): 64 float WAV files
+    of 60 s at 16 kHz of the phase-24 speech-like signal over a -45 dBFS
+    noise floor, through ``audioflow run --spec
+    examples/denoise_master_spec.json`` and ``run -g denoise``, each
+    ``--batch-size 16``: the output exactly the graph called directly on the
+    runner's batches, every lane at -16 LUFS within 0.1 LU or held at the
+    -1 dBTP ceiling, the noise-only stretches (100 ms clear of speech)
+    falling relative to the speech, by at least 10 dB through the spectral
+    gate alone; the spec's graph on the first file on the CPU within its
+    CPU test's tolerance, with the gate decisions that differ counted;
+    audio-s/s, the card's busy share and the largest items of device time;
+27. the keyword-spotting front end (a voice-assistant fleet): a
+    ``StreamSession`` over ``examples/kws_pcen_spec.json``, lead (64,),
+    64 x 10 s at 16 kHz pushed 320 samples (20 ms) at a time: exactly
+    ``scan_stream``, within 1e-5 of the offline graph from frame 0 (the PCEN
+    reseed); ms a push;
+28. the effects chain ``examples/echo_ensemble_spec.json`` on 64 x 30 s at
+    16 kHz, offline and streamed in 16,384-sample chunks: ``Delay`` alone
+    streamed exactly equal to offline; the chain streamed within the bound
+    that the fp32 read positions of the modulated taps set (the offline
+    form reads at positions up to 30 s, where fp32 steps are 2^-5); audio-s/s
+    and ``Delay``'s aten ops;
+29. ``run -g features|chroma|contrast|tonnetz|deltafbank|kws`` over the 256
+    tone files of phase 19, each against the same graph on the CPU on the
+    first file within its CPU test's tolerance; audio-s/s for each;
+30. ``audioflow loudness`` of a 997 Hz 0 dBFS sine (-3.01 LKFS within
+    0.01) and ``audioflow separate -k 2`` of 30 s of two tones (the
+    components sum to the input within 1e-4 of its peak; the 16-bit WAVs
+    within the format's round trip of them); nmf's aten ops.
 
 Every device time (phases 3, 6, 9, 12) is the median of three readings
 under torch.profiler, printed with the readings and the device events per
@@ -224,6 +257,43 @@ SESSION_BATCH = 64
 # the dictation fork (phase 24): 64 x 30 s at 48 kHz; egress (phase 25): one 12 s file
 DICTATION_SECONDS = 30.0
 EGRESS_SECONDS = 12.0
+# denoise mastering (phase 26): 64 files of 60 s at 16 kHz of the phase-24
+# speech-like signal over a -45 dBFS noise floor, float WAV (61.4 M samples,
+# 246 MB of PCM), run in batches of 16 (voice-over and podcast batches)
+DENOISE_FILES = 64
+DENOISE_SECONDS = 60.0
+DENOISE_BATCH = 16
+NOISE_DB = -45.0
+# the denoise chain on the card against the CPU, of the output's peak: its
+# CPU test's tolerance on 1 s (tests/test_torch_decompose.py), plus what the
+# compressor's envelope adds on a long signal (phase 26 computes it): the
+# envelope runs in the log domain against a ramp of T / tau (600 at 60 s),
+# whose fp32 spacing (2^-14 there) bounds its relative error
+DENOISE_TOL = 2e-5
+# loudness normalization: each lane within 0.1 LU of its target, or held at
+# the -1 dBTP ceiling
+TARGET_LU_TOL = 0.1
+# the spectral gate lowers the noise-only stretches (100 ms clear of speech)
+# by at least this much relative to the speech
+GATE_DB = 10.0
+# the keyword-spotting front end (phase 27): 64 streams of 10 s, 20 ms pushes
+KWS_SECONDS = 10.0
+KWS_PUSH = 320
+# streamed from frame 0 against offline, of the peak: the JAX package's own
+# streaming tolerance for Pcen (tests/test_decompose_deltas.py)
+PCEN_TOL = 1e-5
+# the effects chain (phase 28): 64 x 30 s at 16 kHz, streamed in 16,384-sample chunks
+EFFECTS_SECONDS = 30.0
+EFFECTS_CHUNK = 16384
+# the feature graphs (phase 29) on the card against the CPU, each within its
+# CPU test's tolerance (tests/test_torch_cli.py): ("rel" of the peak or "abs")
+FEATURE_TOLS = {"features": ("rel", 2e-5), "chroma": ("rel", 2e-5), "contrast": ("abs", 0.02),
+                "tonnetz": ("rel", 2e-5), "deltafbank": ("abs", 5e-4), "kws": ("abs", 5e-4)}
+# meters and separation (phase 30): the BS.1770 anchor (-3.01 LKFS for a
+# 997 Hz 0 dBFS sine), and two separated components summing to the input
+ANCHOR_LU_TOL = 0.01
+SEPARATE_SECONDS = 30.0
+SEPARATE_TOL = 1e-4
 
 
 def rfft_flops(n: int) -> float:
@@ -299,6 +369,21 @@ def device_ms(fn, iters: int, kernels: int | None = None) -> tuple[float, list[f
 def timed(t: tuple[float, list[float], float]) -> str:
     """A :func:`device_ms` result for a log line."""
     return f"{t[0]:.4f} ms (readings {t[1]}, {t[2]:g} device events a call)"
+
+
+def run_cli(args: list[str]) -> list[dict]:
+    """``audioflow <args>`` in the process; its exit code checked, its JSON
+    lines returned."""
+    import contextlib
+    import io
+
+    from audioflow_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(args)
+    check(rc == 0, f"audioflow exited {rc}: {args}")
+    return [json.loads(line) for line in out.getvalue().strip().splitlines()]
 
 
 def configs_3_and_5(dev: torch.device, card: str) -> int:
@@ -426,26 +511,17 @@ def file_path(dev: torch.device, card: str) -> dict:
     """Phases 18-21: the file path of the headline graph, host decode ->
     staging ring -> batch runner -> graph on the card -> sinks, through
     ``audioflow run``. Returns the numbers for the kernels line."""
-    import contextlib
     import dataclasses
-    import io
     import os
     import tempfile
 
-    from audioflow_torch import cli, runner
+    from audioflow_torch import runner
     from audioflow_torch.config import graph_to_spec
     from audioflow_torch.io import BatchLoader, decode_batch, native, write_wav
     from audioflow_torch.models import eq_bands_default, log_mel_frontend
     from audioflow_torch.ops.kernels import melspec
     from audioflow_torch.profiling import tone_batch
     from audioflow_torch.sinks import ArraySink
-
-    def run_cli(args: list[str]) -> dict:
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(args)
-        check(rc == 0, f"audioflow run exited {rc}: {args}")
-        return json.loads(out.getvalue().strip().splitlines()[-1])
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as tmp:
         # phase 18: the native decoder, and the files of phase 19
@@ -483,7 +559,7 @@ def file_path(dev: torch.device, card: str) -> dict:
         calls = native.STATS.calls
         melspec.COUNT.launches = 0
         line = run_cli(["run", "-i", glob, "-g", "logmel", "--batch-size", str(FILE_BATCH),
-                        "-o", os.path.join(tmp, "logmel.npy"), "--stats", os.path.join(tmp, "stats.json")])
+                        "-o", os.path.join(tmp, "logmel.npy"), "--stats", os.path.join(tmp, "stats.json")])[-1]
         launches = melspec.COUNT.launches
         check(native.STATS.calls - calls == batches, f"native decoder calls {native.STATS.calls - calls}")
         # one launch a batch, and one for the runner's warm-up call of the first
@@ -533,7 +609,7 @@ def file_path(dev: torch.device, card: str) -> dict:
             json.dump(dataclasses.asdict(graph_to_spec(g5)), f)
         melspec.COUNT.launches = 0
         line5 = run_cli(["run", "-i", glob, "--spec", spec, "--batch-size", str(FILE_BATCH),
-                         "-o", os.path.join(tmp, "config5.npy"), "--stats", os.path.join(tmp, "stats.json")])
+                         "-o", os.path.join(tmp, "config5.npy"), "--stats", os.path.join(tmp, "stats.json")])[-1]
         launches5 = melspec.COUNT.launches
         check(launches5 == batches + 1, f"config 5: melspec launched {launches5} times for {batches} batches + 1")
         got5 = np.load(os.path.join(tmp, "config5.npy"))
@@ -589,23 +665,27 @@ def file_path(dev: torch.device, card: str) -> dict:
     return {"launches_file_path": launches, "launches_config5_spec": launches5}
 
 
-def _speech_batch(batch: int, seconds: float, rate: int, seed: int) -> np.ndarray:
+def _speech_batch(batch: int, seconds: float, rate: int, seed: int, floor_db: float = -100.0,
+                  with_mask: bool = False):
     """A seeded speech-like batch: per row, tone-and-noise bursts of 0.2-1.2 s
     (about -20 dBFS in the VAD's mean-square measure) between silences of
-    0.4-1.5 s (a noise floor near -100 dBFS), both well clear of the VAD's
-    -50 dB threshold."""
+    0.4-1.5 s (a noise floor at ``floor_db``, by default near -100 dBFS, well
+    clear of the VAD's -50 dB threshold). With ``with_mask`` also the
+    boolean mask of the burst samples."""
     rng = np.random.default_rng(seed)
     n = int(seconds * rate)
-    x = (1e-5 * rng.standard_normal((batch, n))).astype(np.float32)
-    for row in x:
+    x = (10 ** (floor_db / 20) * rng.standard_normal((batch, n))).astype(np.float32)
+    mask = np.zeros(x.shape, bool)
+    for row, row_mask in zip(x, mask):
         pos = int(rng.uniform(0.1, 0.6) * rate)
         while pos < n:
             m = min(n - pos, int(rng.uniform(0.2, 1.2) * rate))
             t = np.arange(m, dtype=np.float32) / rate
             row[pos : pos + m] += (0.3 * np.sin(2 * np.pi * rng.uniform(120, 900) * t)
                                    + 0.05 * rng.standard_normal(m)).astype(np.float32)
+            row_mask[pos : pos + m] = True
             pos += m + int(rng.uniform(0.4, 1.5) * rate)
-    return x
+    return (x, mask) if with_mask else x
 
 
 def dictation(dev: torch.device, card: str) -> dict:
@@ -646,7 +726,8 @@ def dictation(dev: torch.device, card: str) -> dict:
     check(proc.returncode == 0, f"audioflow validate exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
     cli_report = json.loads(proc.stdout)
     rows = {k: v for k, v in cli_report.items() if k not in ("pass", "max_abs_err", "rows_missing")}
-    check(len(rows) == 15 and cli_report["rows_missing"] == list(ROWS_MISSING) and cli_report["pass"],
+    check(len(rows) == 17 and len(ROWS_MISSING) == 6 and cli_report["rows_missing"] == list(ROWS_MISSING)
+          and cli_report["pass"],
           f"validate report rows {sorted(rows)}, missing {cli_report['rows_missing']}")
     bad = [k for k, v in {**rows, "max_abs_err": cli_report["max_abs_err"]}.items() if not within_budget(k, v)]
     check(not bad and report["pass"], f"validate rows over budget: {bad}")
@@ -865,6 +946,337 @@ def dictation(dev: torch.device, card: str) -> dict:
           f"loopback server: {n_wire} chunks, the server's audio exactly the card's i16 ({want_i16.size} samples), "
           f"transcript {texts}; with a drop after 3 chunks: {srv2.connections} connections, {srv2.configures} "
           f"configures, {received} of {n_wire} chunks received in order, transcript {texts2}")
+    return out
+
+
+def _fp32_spacing(n: float) -> float:
+    """The spacing of fp32 values at magnitude ``n``."""
+    return 2.0 ** (math.floor(math.log2(n)) - 23)
+
+
+def _relative_fall_db(x: np.ndarray, y: np.ndarray, speech: np.ndarray, noise: np.ndarray) -> np.ndarray:
+    """Per lane, how far the noise stretches fell relative to the speech
+    from ``x`` to ``y``, in dB (positive: the noise fell more)."""
+    def ratio(a):
+        return np.array([10 * np.log10((r[s] ** 2).mean() / (r[n] ** 2).mean()) for r, s, n in zip(a, speech, noise)])
+    return ratio(y) - ratio(x)
+
+
+def mastering(dev: torch.device, card: str) -> dict:
+    """Phases 26-30: the mastering, effects and feature families through
+    the port's entry points: denoise mastering through ``audioflow run``,
+    the keyword-spotting front end through a session, the effects chain
+    offline and streamed, the feature graphs over the file path, and the
+    ``loudness`` and ``separate`` subcommands. Returns their numbers."""
+    import os
+    import tempfile
+
+    from scipy.ndimage import binary_dilation
+
+    from audioflow_torch import cli, ops
+    from audioflow_torch.config import ConfigManager, graph_from_spec
+    from audioflow_torch.graph import Delay, chain
+    from audioflow_torch.io import decode_batch, read_audio, write_wav
+    from audioflow_torch.models import denoise_master_chain
+    from audioflow_torch.ops import decompose, integrated_loudness, true_peak
+    from audioflow_torch.ops.effects import history_len
+    from audioflow_torch.ops.kernels import melspec
+    from audioflow_torch.profiling import aten_ops, profile, tone_batch
+    from audioflow_torch.session import StreamSession
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def example(name):
+        with open(os.path.join(root, "examples", name)) as f:
+            return json.load(f)
+
+    def top(prof, n=4):
+        return ", ".join(f"{k['name'][:40]} {k['share']:.1%}" for k in prof["kernels"][:n])
+
+    out = {}
+
+    # phase 26: denoise mastering through `audioflow run`, the example spec
+    # and `-g denoise`, each against the graph called directly on the
+    # runner's batches, the loudness target, the gate's noise fall, and the
+    # spec's graph on the CPU
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_denoise_") as tmp:
+        x, speech = _speech_batch(DENOISE_FILES, DENOISE_SECONDS, 16000, SEED + 11, floor_db=NOISE_DB, with_mask=True)
+        files = [os.path.join(tmp, f"vo{i:02d}.wav") for i in range(DENOISE_FILES)]
+        for path, row in zip(files, x):
+            write_wav(path, row, 16000, bits=32)
+        mb = sum(os.path.getsize(f) for f in files) / 1e6
+        glob = os.path.join(tmp, "vo*.wav")
+        stride = 1024 * -(-x.shape[-1] // 1024)  # the CLI's stride
+        # the noise-only stretches, 100 ms clear of any speech (the STFT's
+        # window and the gate's smoothing spread a burst by about that)
+        noise = ~binary_dilation(speech, iterations=1600)
+        spec = example("denoise_master_spec.json")
+        runs = {}
+        for label, args, g in (("--spec denoise_master_spec.json", ["--spec", os.path.join(root, "examples",
+                                                                                             "denoise_master_spec.json")],
+                                graph_from_spec(spec)),
+                               ("-g denoise", ["-g", "denoise"], denoise_master_chain(16000))):
+            npy = os.path.join(tmp, "out.npy")
+            melspec.COUNT.launches = 0
+            line = run_cli(["run", "-i", glob, *args, "--batch-size", str(DENOISE_BATCH), "-o", npy,
+                            "--stats", os.path.join(tmp, "stats.json")])[-1]
+            check(melspec.COUNT.launches == 0, f"denoise {label}: melspec launched {melspec.COUNT.launches} times")
+            got = np.load(npy)
+            check(got.shape == (DENOISE_FILES, stride) and np.isfinite(got).all(), f"denoise {label}: {got.shape}")
+            # the graph called directly on the card, on the batches the runner built
+            err = 0.0
+            for b in range(0, DENOISE_FILES, DENOISE_BATCH):
+                xb = np.zeros((DENOISE_BATCH, stride), np.float32)
+                xb[:, : x.shape[-1]] = x[b : b + DENOISE_BATCH]
+                want = g.chain(torch.from_numpy(xb).to(dev)).cpu().numpy()
+                err = max(err, float(np.abs(got[b : b + DENOISE_BATCH] - want).max()))
+            check(err == 0.0, f"denoise {label}: run vs the graph called directly max|d| {err}")
+            y = torch.from_numpy(got).to(dev)
+            li = integrated_loudness(y, 16000).cpu().numpy()
+            tp = true_peak(y, 16000).cpu().numpy()
+            on_target = (np.abs(li + 16.0) <= TARGET_LU_TOL) | (tp <= -1.0 + 1e-3)
+            check(on_target.all(), f"denoise {label}: lanes off target: LUFS {li[~on_target]}, dBTP {tp[~on_target]}")
+            fall = _relative_fall_db(x, got[:, : x.shape[-1]], speech, noise)
+            check((fall > 0).all(), f"denoise {label}: noise stretches did not fall relative to the speech: {fall}")
+            runs[label] = {"line": line, "fall": fall, "li": li, "tp": tp, "graph": g, "got0": got[0]}
+            print(f"phase 26 denoise mastering ({card}): `audioflow run {label} --batch-size {DENOISE_BATCH}` over "
+                  f"{DENOISE_FILES} float WAV files of {DENOISE_SECONDS:.0f} s at 16 kHz ({mb:.1f} MB, speech-like "
+                  f"bursts over a {NOISE_DB:.0f} dBFS floor): {line['files']} files -> {DENOISE_FILES} x {stride}, "
+                  f"exactly the graph called directly on the runner's batches; melspec launches 0; integrated "
+                  f"loudness {li.min():.3f} to {li.max():.3f} LUFS (target -16, tol {TARGET_LU_TOL}) or true "
+                  f"peak <= -1 dBTP (max {tp.max():.3f}); noise-only stretches fell {fall.min():.2f} to "
+                  f"{fall.max():.2f} dB relative to the speech through the whole chain; "
+                  f"{line['realtime_factor']:.0f} audio-s/s ({line['audio_seconds']:.0f} audio-s in "
+                  f"{line['wall_seconds']:.3f} s, warm-up call {line['compile_seconds']:.3f} s left out)")
+        # the spectral gate alone (the spec's first node) on the first batch
+        xb = torch.from_numpy(np.pad(x[:DENOISE_BATCH], ((0, 0), (0, stride - x.shape[-1])))).to(dev)
+        gate = chain(graph_from_spec(spec).nodes[0], input_rate=16000)
+        gated = gate.chain(xb).cpu().numpy()[:, : x.shape[-1]]
+        gate_fall = _relative_fall_db(x[:DENOISE_BATCH], gated, speech[:DENOISE_BATCH], noise[:DENOISE_BATCH])
+        check((gate_fall >= GATE_DB).all(), f"spectral gate: noise fell only {gate_fall.min():.2f} dB < {GATE_DB}")
+        # the spec's graph on the first file on the CPU. A gate decision
+        # (log10 |X| > threshold) that the card and the CPU take differently
+        # moves the output near it by more than the fp32 tolerance; the
+        # samples such a bin can reach are left out of the comparison and
+        # counted: its STFT frames and the smoothing's 2 frames on either
+        # side, then the FIR's taps and 5 time constants of the
+        # compressor's release
+        g_spec = runs["--spec denoise_master_spec.json"]["graph"]
+        x0 = torch.from_numpy(xb[:1].cpu().numpy())
+        cpu0 = g_spec.chain(x0).numpy()[0]
+        card0 = runs["--spec denoise_master_spec.json"]["got0"]
+
+        def gate_parts(d):
+            mag = ops.stft(x0.to(d), 1024, 256, impl="matmul").abs()
+            mean, std = decompose.noise_profile(mag)
+            return torch.log10(torch.clamp_min(mag, 1e-10)).cpu(), (mean + 1.5 * std).cpu()
+
+        (lg, tg), (lc, tc) = gate_parts(dev), gate_parts("cpu")
+        flipped = ((lg > tg[..., None, :]) != (lc > tc[..., None, :]))[0].any(dim=-1)
+        flips = int(((lg > tg[..., None, :]) != (lc > tc[..., None, :])).sum())
+        reach = spec["nodes"][1]["num_taps"] - 1 + 5 * round(spec["nodes"][2]["release_ms"] * 16)
+        clear = np.ones(card0.shape, bool)
+        for f in torch.nonzero(flipped).flatten().tolist():
+            clear[max(0, (f - 2) * 256 - 512) : (f + 2) * 256 + 512 + reach] = False
+        diff = np.abs(card0 - cpu0) / np.abs(cpu0).max()
+        cpu_err = float(diff[clear].max())
+        near_err = float(diff[~clear].max()) if (~clear).any() else 0.0
+        comp = spec["nodes"][2]
+        tau = comp["release_ms"] * 16  # the release's time constant in samples
+        env_tol = (1 - 1 / comp["ratio"]) * _fp32_spacing(stride / tau)
+        cpu_tol = DENOISE_TOL + env_tol
+        check(cpu_err <= cpu_tol, f"denoise spec: card vs CPU {cpu_err:.3e} > {cpu_tol:.3e} (at sample "
+              f"{int(np.argmax(np.where(clear, diff, 0)))}) away from the {flips} gate decisions that differ")
+        # where the time goes: one batch of 16 x 60 s under the profiler
+        prof = profile(lambda: g_spec.chain(xb))
+        print(f"phase 26 denoise details ({card}): the spectral gate alone lowers the noise-only stretches "
+              f"{gate_fall.min():.2f} to {gate_fall.max():.2f} dB relative to the speech (bound >= {GATE_DB}); the "
+              f"spec's graph on file 0 on the CPU vs the card: max|d| {cpu_err:.3e} of the peak (tol {cpu_tol:.3e}: "
+              f"{DENOISE_TOL} and the envelope's {env_tol:.3e} at T / tau = {stride / tau:.0f}) "
+              f"outside the reach of the {flips} of {lg.numel()} gate decisions that differ ({(~clear).sum()} "
+              f"samples, max|d| {near_err:.3e} there); a batch of {DENOISE_BATCH} x {stride} under the "
+              f"profiler: {prof['untraced_ms']:.2f} ms, card busy {1 - prof['idle_untraced']:.1%} "
+              f"({prof['busy_ms']:.2f} ms, {prof['launches']} device events); {top(prof)}")
+        out["denoise"] = {k: {"audio_s_per_s": r["line"]["realtime_factor"], "fall_db_min": float(r["fall"].min())}
+                          for k, r in runs.items()}
+        out["denoise"]["batch"] = {"untraced_ms": prof["untraced_ms"], "busy_ms": prof["busy_ms"],
+                                   "idle_untraced": prof["idle_untraced"], "launches": prof["launches"],
+                                   "gate_fall_db_min": float(gate_fall.min()), "cpu_err": cpu_err, "flips": flips,
+                                   "near_flip_err": near_err}
+        del x, speech, noise, xb, runs
+
+    # phase 27: the keyword-spotting front end through a session, 20 ms pushes
+    g = graph_from_spec(example("kws_pcen_spec.json"))
+    xk = _speech_batch(SESSION_BATCH, KWS_SECONDS, 16000, SEED + 13)
+    n_push = xk.shape[-1] // KWS_PUSH
+    melspec.COUNT.launches = 0
+    sess = StreamSession(g, lead_shape=(SESSION_BATCH,), device=dev).open()
+    chunk = sess.chunk_in
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in range(n_push):
+        sess.push(xk[:, p * KWS_PUSH : (p + 1) * KWS_PUSH])
+    res = sess.poll_all()
+    res[-1].data
+    push_ms = (time.perf_counter() - t0) / n_push * 1e3
+    sess.close()
+    check(melspec.COUNT.launches == 0, f"kws: melspec launched {melspec.COUNT.launches} times")
+    got = np.concatenate([r.data for r in res], axis=1)
+    xd = torch.from_numpy(xk[:, : len(res) * chunk]).to(dev)
+    want = g.scan_stream(xd, chunk).cpu().numpy()
+    check(np.array_equal(got, want), f"kws session vs scan_stream max|d| {np.abs(got - want).max()}")
+    lat = g.stream_latency(chunk)
+    off = g.chain(xd).cpu().numpy()
+    n = min(got.shape[1] - lat, off.shape[1])
+    kws_err = float(np.abs(got[:, lat : lat + n] - off[:, :n]).max() / np.abs(off).max())
+    check(kws_err <= PCEN_TOL, f"kws streamed vs offline from frame 0: {kws_err} > {PCEN_TOL}")
+    step_ops = aten_ops(lambda: g.stream_step(g.init_state(chunk, (SESSION_BATCH,), device=dev), xd[:, :chunk]))
+    sess = StreamSession(g, lead_shape=(SESSION_BATCH,), device=dev).open()
+
+    def one_pass():
+        for p in range(n_push):
+            sess.push(xk[:, p * KWS_PUSH : (p + 1) * KWS_PUSH])
+        sess.poll_all()[-1].data
+
+    prof_k = profile(one_pass)
+    sess.close()
+    print(f"phase 27 keyword spotting ({card}): StreamSession(kws_pcen_spec.json: Spectrogram(512, 160) -> "
+          f"MelProject(40, linear) -> Pcen), lead ({SESSION_BATCH},), {KWS_SECONDS:.0f} s at 16 kHz in {n_push} pushes "
+          f"of {KWS_PUSH}, chunk {chunk}: {len(res)} results {got.shape}, exactly scan_stream; streamed from frame "
+          f"{lat} vs offline from frame 0 {kws_err:.3e} of the peak (tol {PCEN_TOL}, the PCEN reseed); melspec "
+          f"launches 0; {push_ms:.3f} ms a push ({push_ms * chunk / KWS_PUSH:.3f} ms a chunk); {step_ops} aten ops "
+          f"a chunk; a pass of {n_push} pushes under the profiler: {prof_k['untraced_ms']:.1f} ms, card busy "
+          f"{prof_k['busy_ms']:.2f} ms, idle {prof_k['idle_untraced']:.1%} untraced, {prof_k['idle_traced']:.1%} "
+          f"traced, {prof_k['launches']} device events; {top(prof_k)}")
+    out["kws"] = {"push_ms": push_ms, "step_ops": step_ops, "err": kws_err, "prof": {
+        k: prof_k[k] for k in ("untraced_ms", "busy_ms", "idle_untraced", "idle_traced", "launches")}}
+    del xk, xd, want, off, got
+
+    # phase 28: the effects chain (Chorus -> Delay -> Limiter), offline and
+    # streamed; Delay alone streamed exactly equal to offline
+    spec = example("echo_ensemble_spec.json")
+    g = graph_from_spec(spec)
+    xe = _speech_batch(SESSION_BATCH, EFFECTS_SECONDS, 16000, SEED + 17, floor_db=NOISE_DB)
+    t = xe.shape[-1] // EFFECTS_CHUNK * EFFECTS_CHUNK
+    xd = torch.from_numpy(xe[:, :t]).to(dev)
+    off = g.chain(xd)
+    streamed = g.scan_stream(xd, EFFECTS_CHUNK)
+    fx_err = float((streamed - off).abs().max())
+    # the bound: both forms read at an fp32 position n + Dmax - d(n), off
+    # by half a spacing (at n up to T offline, up to a chunk streamed) and
+    # an ulp of d each; the taps' weight sums to mix; the delay adds
+    # 1 + mix / (1 - feedback); the limiter at most doubles a change
+    ch, dl = spec["nodes"][0], spec["nodes"][1]
+    dmax = history_len(16000, ch["base_delay_s"], ch["depth_s"])
+    d_frac = (_fp32_spacing(t + dmax) + _fp32_spacing(EFFECTS_CHUNK + dmax)) / 2 + 2 * _fp32_spacing(dmax)
+    step = float(np.abs(np.diff(xe[:, :t], axis=-1)).max())
+    fx_bound = 2 * (1 + dl["mix"] / (1 - dl["feedback"])) * ch["mix"] * d_frac * step
+    check(fx_err <= fx_bound, f"effects streamed vs offline {fx_err} > {fx_bound}")
+    dg = chain(Delay(dl["delay_s"], dl["feedback"], dl["mix"]), input_rate=16000)
+    check(torch.equal(dg.scan_stream(xd, EFFECTS_CHUNK), dg.chain(xd)), "Delay streamed differs from offline")
+    audio = SESSION_BATCH * t / 16000
+    prof_off = profile(lambda: g.chain(xd))
+    prof_st = profile(lambda: g.scan_stream(xd, EFFECTS_CHUNK))
+    off_ms, st_ms = prof_off["untraced_ms"], prof_st["untraced_ms"]
+    d = round(dl["delay_s"] * 16000)
+    delay_ops = {"offline": aten_ops(lambda: dg.chain(xd)), "chunk": aten_ops(
+        lambda: dg.nodes[0].step(dg.nodes[0].init_carry((SESSION_BATCH,), EFFECTS_CHUNK, device=dev),
+                                 xd[:, :EFFECTS_CHUNK]))}
+    print(f"phase 28 effects ({card}): echo_ensemble_spec.json (Chorus(3 voices) -> Delay(0.18 s, D={d}) -> "
+          f"Limiter) on {SESSION_BATCH} x {t} at 16 kHz: streamed in {EFFECTS_CHUNK}-sample chunks vs offline max|d| "
+          f"{fx_err:.3e} (bound {fx_bound:.3e} from the fp32 read positions: spacing {_fp32_spacing(t + dmax)} at "
+          f"n = {t}, largest step between samples {step:.3f}; the JAX package's documented figure is 1e-3 on "
+          f"unit-scale audio); Delay alone streamed exactly equal to offline; offline {audio / off_ms * 1e3:.0f} "
+          f"audio-s/s ({off_ms:.2f} ms; card busy {prof_off['busy_ms']:.2f} ms, idle {prof_off['idle_untraced']:.1%} "
+          f"untraced, {prof_off['idle_traced']:.1%} traced, {prof_off['launches']} device events; {top(prof_off)}), "
+          f"streamed {audio / st_ms * 1e3:.0f} audio-s/s ({st_ms:.2f} ms; card busy {prof_st['busy_ms']:.2f} ms, "
+          f"idle {prof_st['idle_untraced']:.1%} untraced, {prof_st['idle_traced']:.1%} traced, "
+          f"{prof_st['launches']} device events); Delay's aten ops: {delay_ops['offline']} offline "
+          f"({-(-t // d)} blocks), {delay_ops['chunk']} a chunk ({-(-EFFECTS_CHUNK // d)} blocks)")
+    out["effects"] = {"offline_audio_s_per_s": audio / off_ms * 1e3, "streamed_audio_s_per_s": audio / st_ms * 1e3,
+                      "err": fx_err, "bound": fx_bound, "delay_ops": delay_ops}
+    del xe, xd, off, streamed
+
+    # phase 29: the feature graphs through `audioflow run` over phase 19's
+    # tone files, each against the same graph on the CPU on the first file
+    cfg = ConfigManager().current()
+    rates = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_features_") as tmp:
+        x_np = tone_batch(FILES, SECONDS, RATE, SEED)
+        for i, row in enumerate(x_np):
+            write_wav(os.path.join(tmp, f"f{i:03d}.wav"), row, RATE)
+        del x_np
+        glob = os.path.join(tmp, "f*.wav")
+        first = os.path.join(tmp, "f000.wav")
+        stride = 1024 * -(-int(SECONDS * RATE) // 1024)
+        x0 = torch.from_numpy(decode_batch([first], stride=stride).samples)
+        for name, (kind, tol) in FEATURE_TOLS.items():
+            npy = os.path.join(tmp, f"{name}.npy")
+            melspec.COUNT.launches = 0
+            line = run_cli(["run", "-i", glob, "-g", name, "--batch-size", str(FILE_BATCH), "-o", npy,
+                            "--stats", os.path.join(tmp, "stats.json")])[-1]
+            check(melspec.COUNT.launches == 0, f"run -g {name}: melspec launched {melspec.COUNT.launches} times")
+            got = np.load(npy)
+            want = cli._build_graph(name, RATE, cfg).chain(x0).numpy()[0]
+            check(got.shape[0] == FILES and got.shape[1:] == want.shape and np.isfinite(got).all(),
+                  f"run -g {name}: {got.shape} vs {want.shape}")
+            diff = np.abs(got[0] - want)
+            excluded = 0
+            if name == "features":
+                # the rolloff column picks the first bin whose cumulative
+                # magnitude crosses 85%: frames within 1e-5 of a tie are left out
+                mag = ops.spectrogram(x0, 1024, 256, center=False, power=False, dtype=torch.float64)[0]
+                cum = torch.cumsum(mag, -1)
+                near = ((cum - 0.85 * cum[..., -1:]).abs() / cum[..., -1:]).amin(-1).numpy() < 1e-5
+                excluded = int(near.sum())
+                diff[near, 2] = 0.0
+            err = float(diff.max() / (np.abs(want).max() if kind == "rel" else 1.0))
+            check(err <= tol, f"run -g {name}: card vs CPU {err} > {tol}")
+            rates[name] = line["realtime_factor"]
+            print(f"phase 29 run -g {name} ({card}): {line['files']} files of {SECONDS:.0f} s at {RATE} Hz -> "
+                  f"{got.shape}, batches {line['batches']}; file 0 vs the graph on the CPU: {err:.3e} "
+                  f"({kind}, tol {tol}){f', {excluded} rolloff frames at a tie left out' if name == 'features' else ''}; "
+                  f"melspec launches 0; {line['realtime_factor']:.0f} audio-s/s")
+            del got
+    out["features"] = rates
+
+    # phase 30: the meters and the separation through the CLI
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_meters_") as tmp:
+        anchor = os.path.join(tmp, "sine997.wav")
+        write_wav(anchor, np.sin(2 * np.pi * 997.0 * np.arange(5 * 48000) / 48000.0).astype(np.float32), 48000,
+                  bits=32)
+        row = run_cli(["loudness", anchor])[-1]
+        check(abs(row["integrated_lufs"] + 3.01) <= ANCHOR_LU_TOL, f"loudness anchor {row}")
+        ts = np.arange(int(SEPARATE_SECONDS * 16000)) / 16000
+        x2 = (0.5 * np.sin(2 * np.pi * 220.0 * ts) * (ts < SEPARATE_SECONDS / 2) + 0.3 * np.sin(2 * np.pi * 660.0 * ts)
+              + 1e-3 * np.random.default_rng(SEED + 19).standard_normal(ts.size)).astype(np.float32)
+        two = os.path.join(tmp, "two_tones.wav")
+        write_wav(two, x2, 16000, bits=32)
+        t0 = time.perf_counter()
+        sep = run_cli(["separate", "-i", two, "-k", "2"])[-1]
+        sep_s = time.perf_counter() - t0
+        # the function `separate` runs, on the card with the CLI's arguments:
+        # its components sum to the input; the CLI's 16-bit WAVs hold them
+        # to the format's round trip, trunc(c * 32767) / 32768
+        comps, _, _ = ops.nmf_separate(torch.from_numpy(x2).to(dev), 2, 1024, 256)
+        comps = comps.cpu().numpy()
+        sep_err = float(np.abs(comps.sum(0) - x2).max() / np.abs(x2).max())
+        wavs = np.stack([read_audio(p)[0] for p in sep["components"]])
+        wav_err = float((np.abs(wavs - comps) - (np.abs(comps) + 1) / 32768).max())
+        check(len(wavs) == 2 and sep_err <= SEPARATE_TOL and sep["residual_rel"] <= SEPARATE_TOL and wav_err <= 0,
+              f"separate: {len(wavs)} components, sum err {sep_err}, residual_rel {sep['residual_rel']}, "
+              f"WAVs past the 16-bit round trip by {wav_err}")
+        mag = ops.stft(torch.from_numpy(x2).to(dev), 1024, 256).abs()
+        nmf_ops = aten_ops(lambda: ops.nmf(mag, 2))
+    print(f"phase 30 meters and separation ({card}): `audioflow loudness` of a 997 Hz 0 dBFS sine at 48 kHz: "
+          f"{row['integrated_lufs']} LKFS (want -3.01 within {ANCHOR_LU_TOL}), true peak {row['true_peak_dbtp']} "
+          f"dBTP; `audioflow separate -k 2` of {SEPARATE_SECONDS:.0f} s of two tones: templates peak at "
+          f"{sep['template_peak_hz']} Hz, the components sum to the input within {sep_err:.2e} of its peak "
+          f"(tol {SEPARATE_TOL}), residual_rel {sep['residual_rel']}, the 16-bit WAVs within the format's round "
+          f"trip of them; {sep_s:.2f} s end to end; nmf's 200 "
+          f"iterations run {nmf_ops} aten ops")
+    out["meters"] = {"anchor_lufs": row["integrated_lufs"], "separate_s": sep_s, "separate_err": sep_err,
+                     "nmf_ops": nmf_ops}
     return out
 
 
@@ -1383,6 +1795,7 @@ def main() -> int:
     files = file_path(dev, card)
     dict_out = dictation(dev, card)
     lv = dict_out["launches_validate"]
+    mastering(dev, card)
 
     print(json.dumps({"kernels": [
         {

@@ -9,6 +9,7 @@ after the resampler within 1 LSB.
 
 import dataclasses
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,7 +20,10 @@ from audioflow_tpu.cli import main as jmain
 from audioflow_tpu.config import graph_to_spec as j_graph_to_spec
 from audioflow_torch.cli import main as tmain
 from audioflow_torch.io import write_wav
+from test_torch_decompose import _gate_decisions_agree, _voice
+from logging_guard import restore_audioflow_logger  # noqa: F401  (autouse)
 
+ROOT = Path(__file__).resolve().parents[1]
 TIMES = ("wall_seconds", "compile_seconds", "realtime_factor", "realtime_factor_per_chip")
 
 
@@ -88,8 +92,9 @@ def test_run_spec_from_jax_config5(tmp_path, capsys):
 
 def test_run_refusals(tmp_path, capsys):
     inputs = _files(tmp_path, 16000, n=2, bad=False)
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tmain(["run", "-i", inputs, "-g", "kws", "--device", "cpu"])
+    for graph in ("cqt", "cqtroundtrip", "onset", "beats"):
+        with pytest.raises(SystemExit, match="not yet ported"):
+            tmain(["run", "-i", inputs, "-g", graph, "--device", "cpu"])
     with pytest.raises(SystemExit, match="--sharded"):
         tmain(["run", "-i", inputs, "--sharded", "--device", "cpu"])
     if not torch.cuda.is_available():  # --device defaults to the card
@@ -115,3 +120,130 @@ def test_info_devices_config(tmp_path, capsys):
     assert json.loads(capsys.readouterr().out)["audio"]["n_mels"] == 64
     assert tmain(["config", "path", "--file", str(f)]) == 0
     assert capsys.readouterr().out.strip() == str(f)
+
+
+def _voice_files(tmp_path, n=2):
+    """Float WAV files of a speech-like signal (tone bursts over a -45 dBFS
+    floor), 1.024 s at 16 kHz: a whole number of the CLI's 1024-sample
+    padding, so the graphs see the signal as written. Seed 2 keeps every
+    bin's spectral-gate decision clear of fp32 differences between the
+    packages (``test_run_new_graphs_match_jax_cli`` asserts it)."""
+    x = _voice(seconds=16384 / 16000, lead=(n,), seed=2)
+    d = tmp_path / "voice"
+    d.mkdir()
+    for i, row in enumerate(x):
+        write_wav(d / f"v{i}.wav", row, 16000, bits=32)
+    return str(d / "*.wav"), x
+
+
+# the seven graphs of the mastering and feature families, each against the
+# JAX CLI: log-mel and PCEN features within 5e-4 absolute (the run tests'
+# log-mel tolerance above), the rest relative to the output's peak within
+# the family tests' graph tolerances (test_torch_features.py,
+# test_torch_decompose.py), spectral contrast within 0.02 dB
+_NEW_GRAPHS = {"kws": ("abs", 5e-4), "deltafbank": ("abs", 5e-4), "denoise": ("rel", 2e-5),
+               "features": ("rel", 2e-5), "chroma": ("rel", 2e-5), "contrast": ("abs", 0.02),
+               "tonnetz": ("rel", 2e-5)}
+
+
+@pytest.mark.parametrize("graph", sorted(_NEW_GRAPHS))
+def test_run_new_graphs_match_jax_cli(tmp_path, capsys, graph):
+    inputs, x = _voice_files(tmp_path)
+    if graph == "denoise":  # no spectral-gate decision can flip between the packages
+        assert _gate_decisions_agree(x, n_fft=1024, hop=256)
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    tl, tout = _run(tmain, capsys, ["-i", inputs, "-g", graph, "--device", "cpu"], tmp_path / "t" / "o.npy")
+    jl, jout = _run(jmain, capsys, ["-i", inputs, "-g", graph], tmp_path / "j" / "o.npy")
+    for k in set(jl) - set(TIMES) - {"output"}:
+        assert tl[k] == jl[k], k
+    assert tout.shape == jout.shape and np.isfinite(tout).all()
+    kind, tol = _NEW_GRAPHS[graph]
+    err = np.abs(tout - jout).max() / (np.abs(jout).max() if kind == "rel" else 1.0)
+    assert err < tol, (graph, err)
+
+
+def _tones(tmp_path, name="two_tones.wav", seconds=2.0, rate=16000):
+    t = np.arange(int(seconds * rate)) / rate
+    x = (0.5 * np.sin(2 * np.pi * 220.0 * t) * (t < seconds / 2) + 0.3 * np.sin(2 * np.pi * 660.0 * t)
+         + 1e-3 * np.random.default_rng(7).standard_normal(t.size)).astype(np.float32)
+    path = tmp_path / name
+    write_wav(path, x, rate, bits=32)
+    return path, x
+
+
+def test_loudness_matches_jax_cli(tmp_path, capsys):
+    """The meter's JSON against the JAX CLI's (its values rounded to 0.01,
+    so within one step), and the normalized copy read back."""
+    path, _ = _tones(tmp_path, seconds=4.0)
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    capsys.readouterr()
+    assert tmain(["loudness", str(path), "--normalize-to", "-20", "--out-dir", str(tmp_path / "t"),
+                  "--device", "cpu"]) == 0
+    tl = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert jmain(["loudness", str(path), "--normalize-to", "-20", "--out-dir", str(tmp_path / "j")]) == 0
+    jl = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(tl) == set(jl)
+    for k, v in jl.items():
+        if isinstance(v, float):
+            assert abs(tl[k] - v) <= 0.0101, k
+        elif k != "normalized":
+            assert tl[k] == v, k
+    assert abs(tl["normalized_lufs"] + 20.0) <= 0.02
+    if not torch.cuda.is_available():  # --device defaults to the card
+        assert tmain(["loudness", str(path)]) == 2
+
+
+def test_separate_matches_jax_cli(tmp_path, capsys):
+    """Two components that sum to the input (both CLIs' ``residual_rel``),
+    each template peaking at one of the two tones. The initial factors come
+    from another generator in each package, so the components are compared
+    by what they separate, not sample by sample."""
+    path, x = _tones(tmp_path)
+    capsys.readouterr()
+    args = ["separate", "-i", str(path), "-k", "2", "--iterations", "60"]
+    assert tmain([*args, "-o", str(tmp_path / "t"), "--device", "cpu"]) == 0
+    tl = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert jmain([*args, "-o", str(tmp_path / "j")]) == 0
+    jl = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(tl["components"]) == len(jl["components"]) == 2
+    assert tl["residual_rel"] <= 1e-4 and jl["residual_rel"] <= 1e-4
+    bin_hz = 16000 / 1024
+    for peaks in (tl["template_peak_hz"], jl["template_peak_hz"]):
+        assert sorted(round(p / bin_hz) for p in peaks) == [round(220 / bin_hz), round(660 / bin_hz)]
+    from audioflow_torch.io import read_audio
+
+    comps = [read_audio(p)[0] for p in tl["components"]]
+    assert np.abs(sum(comps) - x).max() < 2e-4  # 16-bit components, summed
+
+
+# every example spec through `run --spec`, against the JAX CLI on the same
+# files at the spec's input rate: log-mel, MFCC and PCEN outputs within 5e-4
+# absolute, the sample-domain chains within 2e-5 of the peak (the denoise
+# chain's tolerance; the others' are tighter: test_torch_master.py,
+# test_torch_effects.py)
+_SPECS = {"asr_frontend_spec.json": ("abs", 5e-4), "denoise_master_spec.json": ("rel", 2e-5),
+          "echo_ensemble_spec.json": ("abs", 2e-4), "eq_master_spec.json": ("rel", 2e-5),
+          "kws_pcen_spec.json": ("abs", 5e-4), "logmel_spec.json": ("abs", 5e-4), "mfcc_spec.json": ("abs", 5e-4)}
+
+
+@pytest.mark.parametrize("name", sorted(_SPECS))
+def test_run_spec_examples_match_jax_cli(tmp_path, capsys, name):
+    spec = ROOT / "examples" / name
+    rate = json.loads(spec.read_text())["input_rate"]
+    x = _voice(seconds=16384 / 16000, lead=(2,), seed=2)
+    for i, row in enumerate(x):
+        write_wav(tmp_path / f"v{i}.wav", row, rate, bits=32)
+    if name == "denoise_master_spec.json":
+        assert _gate_decisions_agree(x, n_fft=1024, hop=256)
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    args = ["-i", str(tmp_path / "v*.wav"), "--spec", str(spec)]
+    tl, tout = _run(tmain, capsys, [*args, "--device", "cpu"], tmp_path / "t" / "o.npy")
+    jl, jout = _run(jmain, capsys, args, tmp_path / "j" / "o.npy")
+    assert (tl["files"], tl["failed_files"]) == (jl["files"], jl["failed_files"]) == (2, 0)
+    assert tout.shape == jout.shape and np.isfinite(tout).all()
+    kind, tol = _SPECS[name]
+    err = np.abs(tout - jout).max() / (np.abs(jout).max() if kind == "rel" else 1.0)
+    assert err < tol, (name, err)

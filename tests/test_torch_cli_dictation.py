@@ -15,6 +15,7 @@ from audioflow_tpu.cli import main as jmain
 from audioflow_torch.cli import main as tmain
 from audioflow_torch.io import write_wav
 from ws_loopback import ScribeServer
+from logging_guard import restore_audioflow_logger  # noqa: F401  (autouse)
 
 
 def _speech(seconds, rate, seed=0):

@@ -16,6 +16,7 @@ from audioflow_torch.ops import griffin_lim, istft, mel_to_audio, pitch_shift, p
 from audioflow_torch.ops.kernels import griffinlim, melspec, timestretch, viterbi
 from audioflow_torch.ops.mel import mel_filterbank
 from audioflow_torch.ops.stft import dft_banks, padded_window
+from logging_guard import restore_audioflow_logger  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.cuda
 
@@ -601,3 +602,109 @@ def test_session_on_the_card_equals_scan_stream(cuda_device, tmp_path):
         np.testing.assert_array_equal(got, scan[k].cpu().numpy())
     cpu = StreamSession(f, lead_shape=(4,), device="cpu").restore(tmp_path / "snap")
     assert cpu._chunk_index == 6 and cpu._pending == 24000 - 6 * s.chunk_in
+
+
+# --- the mastering, effects and feature families: plain torch on the card ---
+
+def _voice(seconds=1.0, lead=(2,), seed=2, rate=16000):
+    """Tone bursts over a -45 dBFS noise floor."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * rate)
+    t = np.arange(n) / rate
+    x = 10 ** (-45 / 20) * rng.standard_normal((*lead, n))
+    for a, b, f in ((0.1, 0.4, 220.0), (0.55, 0.85, 330.0)):
+        sl = slice(int(a * n), int(b * n))
+        x[..., sl] += 0.3 * np.sin(2 * np.pi * f * t[sl]) * np.hanning(sl.stop - sl.start)
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("impl,taps", [("direct", 101), ("fft", 101), ("auto", 1025)])
+def test_fir_on_card_matches_cpu(cuda_device, impl, taps):
+    """``conv1d`` (cuDNN, fp32 with TF32 off) and cuFFT against the CPU,
+    within 1e-6 of the peak; the carried state exactly."""
+    from audioflow_torch.ops import fir_apply, fir_design
+
+    assert torch.backends.cudnn.allow_tf32 is False
+    h = fir_design(taps, 2000.0, 16000.0)
+    rng = np.random.default_rng(taps)
+    x = torch.from_numpy((0.3 * rng.standard_normal((4, 20000))).astype(np.float32))
+    zi = torch.from_numpy((0.3 * rng.standard_normal((4, taps - 1))).astype(np.float32))
+    y, zf = fir_apply(x.to(cuda_device), h, zi.to(cuda_device), impl=impl)
+    y_cpu, zf_cpu = fir_apply(x, h, zi, impl=impl)
+    assert y.device.type == "cuda"
+    assert (y.cpu() - y_cpu).abs().max().item() <= 1e-6 * y_cpu.abs().max().item()
+    assert torch.equal(zf.cpu(), zf_cpu)
+
+
+def test_spectral_gate_on_card_matches_cpu(cuda_device):
+    """Within 1e-5 of the peak, after checking that no bin's gate decision
+    sits closer to its threshold than the card and the CPU differ."""
+    from audioflow_torch.ops import noise_profile, spectral_gate, stft
+
+    x = torch.from_numpy(_voice())
+
+    def parts(dev):
+        mag = stft(x.to(dev), 1024, 256, impl="matmul").abs()
+        mean, std = noise_profile(mag)
+        return torch.log10(torch.clamp_min(mag, 1e-10)).cpu(), (mean + 1.5 * std).cpu()
+
+    (lg, tg), (lc, tc) = parts(cuda_device), parts("cpu")
+    slack = (lc - tc[..., None, :]).abs() - (lg - lc).abs() - (tg - tc).abs()[..., None, :]
+    assert slack.min().item() > 0
+    got = spectral_gate(x.to(cuda_device), prop_decrease=0.9).cpu()
+    want = spectral_gate(x, prop_decrease=0.9)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_pcen_on_card_matches_cpu(cuda_device):
+    """The doubling-scan smoother with a carry and the reseed, and PCEN,
+    within 2e-6 of the peak."""
+    from audioflow_torch.ops import pcen, pcen_smoother
+
+    rng = np.random.default_rng(5)
+    e = torch.from_numpy(np.abs(rng.standard_normal((8, 300, 40))).astype(np.float32))
+    m0 = torch.from_numpy(rng.random((8, 40)).astype(np.float32))
+    for fi in (None, 0, 17):
+        got = pcen_smoother(e.to(cuda_device), 0.05, m0.to(cuda_device), fi)
+        want = pcen_smoother(e, 0.05, m0, fi)
+        for a, b in zip(got, want):
+            assert (a.cpu() - b).abs().max().item() <= 2e-6 * b.abs().max().item()
+    got, want = pcen(e.to(cuda_device)).cpu(), pcen(e)
+    assert (got - want).abs().max().item() <= 2e-6 * want.abs().max().item()
+
+
+def test_feedback_delay_and_chorus_on_card(cuda_device):
+    """The delay within 1e-6 of the CPU and streamed exactly equal to
+    offline on the card; the chorus within one fp32 spacing of its read
+    position at the signal's end (2^-8 at 48,000 samples), times its wet
+    weight and the signal's largest step between samples: the card's and
+    the CPU's ``sin`` differ by an ulp, which can move a read position by
+    one spacing."""
+    from audioflow_torch.ops import chorus, feedback_delay
+
+    x = torch.from_numpy((0.3 * np.random.default_rng(6).standard_normal((4, 48000))).astype(np.float32))
+    xg = x.to(cuda_device)
+    off, _ = feedback_delay(xg, 2880, 0.35, 0.3)
+    want, _ = feedback_delay(x, 2880, 0.35, 0.3)
+    assert (off.cpu() - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    carry, outs = None, []
+    for i in range(0, 48000, 16384):
+        y, carry = feedback_delay(xg[:, i : i + 16384], 2880, 0.35, 0.3, carry)
+        outs.append(y)
+    assert torch.equal(torch.cat(outs, dim=-1), off)
+    got = chorus(xg, 16000, 0.9, 0.0025, 0.018, 3, 0.4).cpu()
+    spacing = 2.0 ** (np.floor(np.log2(48000 + 330)) - 23)
+    bound = 0.4 * spacing * x.diff(dim=-1).abs().max().item()
+    assert (got - chorus(x, 16000, 0.9, 0.0025, 0.018, 3, 0.4)).abs().max().item() <= bound
+
+
+def test_integrated_loudness_on_card_matches_cpu(cuda_device):
+    """Within 1e-4 LU of the CPU; the 997 Hz anchor reads -3.0103 LKFS
+    within the JAX package's 1e-2 budget."""
+    from audioflow_torch.ops import integrated_loudness
+
+    x = torch.from_numpy(_voice(seconds=4.0))
+    got = integrated_loudness(x.to(cuda_device), 16000).cpu()
+    assert (got - integrated_loudness(x, 16000)).abs().max().item() <= 1e-4
+    tone = torch.sin(2 * np.pi * 997.0 * torch.arange(5 * 48000, dtype=torch.float64) / 48000).float()
+    assert abs(integrated_loudness(tone.to(cuda_device), 48000).item() + 3.0103) < 1e-2

@@ -104,13 +104,26 @@ def test_banded_projection_matches_dense(name):
 
 
 def test_device_bands_follow_the_tensor():
-    """Laid out once per filterbank tensor; an in-place edit is seen."""
+    """Laid out once per filterbank tensor; an in-place edit is seen. The
+    entries that pin this test's own ``fb`` leave the cache with it: the
+    edit bumps ``fb``'s version, and a later check that every cached tensor
+    is unwritten must not meet it."""
     fb = torch.from_numpy(mel_filterbank(257, 32, 16000))
-    a = melspec._device_bands(fb)
-    assert melspec._device_bands(fb)[0] is a[0]
-    fb[:, 3] = 0.0
-    layout, _ = melspec._device_bands(fb)
-    assert layout[1, 3].item() == 0 and a[0][1, 3].item() > 0
+    try:
+        a = melspec._device_bands(fb)
+        assert melspec._device_bands(fb)[0] is a[0]
+        fb[:, 3] = 0.0
+        layout, _ = melspec._device_bands(fb)
+        assert layout[1, 3].item() == 0 and a[0][1, 3].item() > 0
+    finally:
+        drop_bands_of(fb)
+
+
+def drop_bands_of(fb: torch.Tensor) -> None:
+    """Remove the ``melspec._BANDS`` entries that pin ``fb`` (leaf 0)."""
+    with melspec._BANDS._lock:
+        for key in [k for k, v in melspec._BANDS._data.items() if v[0] is fb]:
+            del melspec._BANDS._data[key]
 
 
 def test_kernel_paths():

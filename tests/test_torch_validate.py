@@ -1,9 +1,9 @@
 """The port's validate report on the CPU against the JAX package's, which is
 computed once for the module (about 30 s on a CPU).
 
-The port reports the 15 rows whose ops it has, on the same seeded inputs
+The port reports the 17 rows whose ops it has, on the same seeded inputs
 (the same draws, in the same order) with the same oracles and budgets, and
-names the 8 rows it has not ported. The discrete rows equal the JAX
+names the 6 rows it has not ported (the CQT's). The discrete rows equal the JAX
 package's, every row is inside its budget, and each float row is within
 1e-5 of the JAX value, except three rows that compare two algorithms
 within each package, whose halves differ between the packages by design:
@@ -19,6 +19,7 @@ import pytest
 
 from audioflow_torch.cli import main as tmain
 from audioflow_torch.validate import BUDGETS, ROWS_MISSING, run_validation, within_budget
+from logging_guard import restore_audioflow_logger  # noqa: F401  (autouse)
 
 DISCRETE = ("quantize_i16", "vad_state_mismatches")
 BY_DESIGN = ("pvoc_pallas_vs_xla_rel", "melspec_pallas_vs_xla_logmel", "griffinlim_tone_err")
@@ -38,7 +39,7 @@ def port_report():
 
 def test_report_rows(jax_report, port_report):
     rows = set(port_report) - {"max_abs_err", "pass", "rows_missing"}
-    assert len(rows) == 15 and len(ROWS_MISSING) == 8
+    assert len(rows) == 17 and len(ROWS_MISSING) == 6
     assert set(port_report["rows_missing"]) == set(jax_report) - set(port_report) == set(ROWS_MISSING)
     assert rows | set(ROWS_MISSING) | {"max_abs_err", "pass"} == set(jax_report)
 
@@ -57,7 +58,8 @@ def test_rows_match_jax_and_budgets(jax_report, port_report):
         elif k not in BY_DESIGN:
             assert abs(v - jax_report[k]) <= 1e-5, (k, v, jax_report[k])
     assert port_report["max_abs_err"] == max(port_report[k] for k in (
-        "resample_kaiser", "resample_cubic", "biquad_chain", "stft_magnitude", "spectrogram_matmul", "mel_project"))
+        "resample_kaiser", "resample_cubic", "biquad_chain", "stft_magnitude", "spectrogram_matmul", "mel_project",
+        "fir_direct"))
     assert port_report["pass"] is True and jax_report["pass"] is True
 
 
@@ -76,3 +78,13 @@ def test_cli_validate_prints_the_report(capsys, port_report):
             assert np.isclose(out[k], v, rtol=1e-6, atol=0), k
         else:
             assert out[k] == v
+
+
+@pytest.mark.parametrize("row,budget", [("loudness_997_anchor_lu", 1e-2), ("fir_direct", 1e-4)])
+def test_mastering_rows_match_jax(jax_report, port_report, row, budget):
+    """The two rows of the mastering families: inside the JAX package's own
+    budgets (``audioflow_tpu/validate.py``: the anchor gated at 1e-2 LU,
+    the FIR direct path through ``max_abs_err`` at 1e-4), and within 1e-5 of
+    its values."""
+    assert row not in ROWS_MISSING and port_report[row] < budget and jax_report[row] < budget
+    assert abs(port_report[row] - jax_report[row]) <= 1e-5
