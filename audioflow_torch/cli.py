@@ -41,7 +41,7 @@ from .sinks import auto_sink
 
 _log = get_logger("cli")
 
-# the JAX CLI's graph names; _build_graph builds those whose nodes are ported
+# the JAX CLI's graph names, each built by _build_graph
 _GRAPHS = (
     "logmel", "stft", "eq", "master", "vad", "wire", "fbank", "kws",
     "deltafbank", "denoise", "features", "chroma", "cqt", "cqtroundtrip",
@@ -49,9 +49,21 @@ _GRAPHS = (
 )
 
 
-def _build_graph(name: str, input_rate: int, cfg, streaming: bool = False):
-    from .graph import Chroma, SpectralContrast, SpectralFeatures, Spectrogram, Tonnetz, chain
+def _build_graph(name: str, input_rate: int, cfg, streaming: bool = False, multirate: bool = False):
+    from .graph import (
+        Chroma,
+        Cqt,
+        CqtRoundTripMultirate,
+        Icqt,
+        SpectralContrast,
+        SpectralFeatures,
+        Spectrogram,
+        Tonnetz,
+        chain,
+    )
     from .models import (
+        beat_graph,
+        cqt_frontend,
         delta_fbank_frontend,
         denoise_master_chain,
         eq_chain_graph,
@@ -59,6 +71,7 @@ def _build_graph(name: str, input_rate: int, cfg, streaming: bool = False):
         kws_frontend,
         log_mel_frontend,
         master_chain_graph,
+        onset_frontend,
         stft_magnitude_graph,
         vad_graph,
         wire_egress_graph,
@@ -93,14 +106,25 @@ def _build_graph(name: str, input_rate: int, cfg, streaming: bool = False):
         )
     if name == "chroma":
         return chain(Spectrogram(a.n_fft, a.hop, center=False, power=True), Chroma(), input_rate=input_rate)
+    if name == "cqt":
+        return cqt_frontend(input_rate, a.hop)
+    if name == "cqtroundtrip":
+        # audio -> complex CQT -> audio: the fixed-hop transform and its
+        # hybrid inverse (tonal content only past the painless cliff), or with
+        # --multirate the broadband-invertible per-octave-hop variant
+        if multirate:
+            return chain(CqtRoundTripMultirate(hop=a.hop), input_rate=input_rate)
+        return chain(Cqt(hop=a.hop, output="complex", impl="onedot"), Icqt(hop=a.hop), input_rate=input_rate)
+    if name == "onset":
+        return onset_frontend(input_rate, a.n_fft, a.hop)
+    if name == "beats":
+        return beat_graph(input_rate, a.n_fft, a.hop)
     if name == "contrast":
         return chain(Spectrogram(a.n_fft, a.hop, center=False, power=False), SpectralContrast(), input_rate=input_rate)
     if name == "tonnetz":
         return chain(
             Spectrogram(a.n_fft, a.hop, center=False, power=True), Chroma(), Tonnetz(), input_rate=input_rate
         )
-    if name in _GRAPHS:
-        raise SystemExit(f"graph {name!r} is not yet ported to audioflow_torch")
     raise SystemExit(f"unknown graph {name!r}; known: {_GRAPHS}")
 
 
@@ -206,7 +230,7 @@ def _graph_for(args, input_rate, cfg):
     if args.spec:
         with open(args.spec) as f:
             return graph_from_spec(json.load(f))
-    return _build_graph(args.graph, input_rate, cfg)
+    return _build_graph(args.graph, input_rate, cfg, multirate=args.multirate)
 
 
 def _user_config(args):
@@ -555,6 +579,8 @@ def main(argv: list[str] | None = None) -> int:
     r.add_argument("--input-rate", type=int)
     r.add_argument("--batch-size", type=int, default=0, help="pipeline files in batches of this size")
     r.add_argument("--sharded", action="store_true", help="not ported yet: exits with an error")
+    r.add_argument("--multirate", action="store_true",
+                   help="cqtroundtrip only: the broadband-invertible per-octave-hop CQT variant (ops.cqt_multirate)")
     r.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
     r.add_argument("--config")
     r.add_argument("--stats")

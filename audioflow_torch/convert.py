@@ -18,6 +18,10 @@ A session snapshot (``StreamSession.snapshot``) stores the state's leaves as
 lists, tuples and named tuples in field order, dicts by sorted key, ``k`` an
 int32 leaf. :func:`state_leaves` and :func:`state_from_leaves` give and take
 that order, so a snapshot of either package restores in the other.
+
+A multirate CQT (``ops.cqt(..., multirate=True)``) is one array per octave
+plus static metadata: :func:`multirate_cqt_from_jax` and
+:func:`multirate_cqt_to_numpy` carry it between the packages.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.cqt import MultirateCqt, _MrMeta
 from .ops.vad import VadCarry
 
 
@@ -120,3 +125,18 @@ def state_from_leaves(template, leaves, device=None):
     if next(it, None) is not None:
         raise ValueError("more leaves than the template holds")
     return out
+
+
+def multirate_cqt_from_jax(octaves_np, meta_fields: dict, device=None) -> MultirateCqt:
+    """The port's :class:`~audioflow_torch.ops.cqt.MultirateCqt` from the
+    JAX package's: its octaves as numpy arrays and its ``meta`` as a dict of
+    the metadata's fields (``{k: getattr(c.meta, k) for k in
+    c.meta.__slots__}``)."""
+    fields = {k: meta_fields[k] for k in _MrMeta.__slots__}
+    return MultirateCqt([torch.tensor(np.asarray(o), device=device) for o in octaves_np], _MrMeta(**fields))
+
+
+def multirate_cqt_to_numpy(c: MultirateCqt) -> tuple[list[np.ndarray], dict]:
+    """``(octaves as numpy arrays, the metadata's fields as a dict)``, from
+    which the JAX package rebuilds its ``MultirateCqt(octaves, _MrMeta(**fields))``."""
+    return [o.detach().cpu().numpy() for o in c.octaves], {k: getattr(c.meta, k) for k in _MrMeta.__slots__}

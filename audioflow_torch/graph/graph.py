@@ -83,11 +83,18 @@ class Graph:
         object.__setattr__(self, "output_rate", rate)
 
     # ------------------------------------------------------------------ chain
-    def chain(self, x: torch.Tensor) -> torch.Tensor:
-        """Apply all nodes, whole-array."""
-        for node in self.nodes:
+    def chain(self, x: torch.Tensor, taps: tuple[int, ...] = ()):
+        """Apply all nodes, whole-array.
+
+        ``taps`` are node indices whose outputs are also returned; with taps
+        the return is ``(final, {idx: tapped_output, ...})``.
+        """
+        tapped = {}
+        for i, node in enumerate(self.nodes):
             x = node.apply(x)
-        return x
+            if i in taps:
+                tapped[i] = x
+        return (x, tapped) if taps else x
 
     def __call__(self, x):
         return self.chain(x)
@@ -95,17 +102,30 @@ class Graph:
     # auto-chunk threshold in input samples, as in the JAX package
     _CHUNKED_MIN_T = 65536
 
-    def compile(self, chunked: bool | str = "auto") -> Callable:
+    def compile(
+        self, donate: bool = False, taps: tuple[int, ...] = (), chunked: bool | str = "auto",
+    ) -> Callable:
         """The offline function ``fn(x, device=None) -> output``.
 
         ``x [..., T]`` is a tensor, or a numpy array that goes to ``device``
         ("cuda" unless given; see :func:`audioflow_torch.utils.as_tensor`).
-        ``chunked`` — long-signal execution strategy: the same chain run as a
-        loop over fixed chunks through the streaming machinery, trimmed to
-        the offline output. ``"auto"`` (default) picks the chunked form when
-        the graph is streamable and the input is long; ``True``/``False``
+        ``donate`` is the JAX package's buffer-donation flag, accepted for
+        parity and ignored: the chain never writes its input. ``taps`` are
+        node indices whose outputs are also returned, as in :meth:`chain`;
+        a tapped function is never chunked. ``chunked`` — long-signal
+        execution strategy: the same chain run as a loop over fixed chunks
+        through the streaming machinery, trimmed to the offline output.
+        ``"auto"`` (default) picks the chunked form when the graph is
+        streamable, untapped, and the input is long; ``True``/``False``
         force it.
         """
+        del donate
+        if taps:
+            bad = [i for i in taps if not 0 <= i < len(self.nodes)]
+            if bad:
+                raise ConfigError(f"tap indices out of range: {bad}")
+            taps = tuple(taps)
+            return lambda x, device=None: self.chain(as_tensor(x, device), taps=taps)
         chunkable = chunked is not False and (self.streamable or self._decentered() is not None)
         if chunked is True and not chunkable:
             self._check_streamable()

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from ..errors import AudioError, ErrorCode
-from ..ops import decompose, dynamics, effects, features, fir, loudness
+from ..ops import cqt_mod as cqt_ops
+from ..ops import decompose, dynamics, effects, features, fir, loudness, rhythm
 from ..ops import vad as _vad
 from ..ops.biquad import Biquad, iir_apply, make_iir_plan
 from ..ops.framing import overlap_add
@@ -1468,6 +1469,296 @@ class Tonnetz(Node):
 
     def apply(self, x):
         return features.tonnetz(x)
+
+
+@register_node
+@dataclass(frozen=True)
+class Cqt(Node):
+    """samples -> constant-Q frames ``[..., F, n_bins]`` (``ops/cqt.py``).
+    Streaming (center=False, a magnitude or power output) keeps a carry of
+    ``F0 - hop`` samples, ``F0`` the lowest octave's frame span, so the
+    streamed frames are exactly the offline ones at ``(F0 - hop) / hop``
+    frames of latency."""
+
+    hop: int = 256
+    n_bins: int = 84
+    fmin: float = cqt_ops.FMIN_C1
+    bins_per_octave: int = 12
+    window: str = "hann"
+    filter_scale: float = 1.0
+    center: bool = True
+    output: str = "magnitude"
+    impl: str = "split"
+    precision: str | None = None
+    sample_rate: int | None = None
+
+    domain_out = "frames"
+
+    def _rate(self):
+        if self.sample_rate is None:
+            raise AudioError("Cqt.sample_rate unresolved; set input_rate on the graph")
+        return self.sample_rate
+
+    def _cqt(self, x, center):
+        return cqt_ops.cqt(
+            x, self._rate(), self.hop, self.n_bins, self.fmin, self.bins_per_octave, self.window,
+            self.filter_scale, center=center, output=self.output, impl=self.impl, precision=self.precision,
+        )
+
+    def apply(self, x):
+        return self._cqt(x, self.center)
+
+    def chunk_multiple(self):
+        return self.hop
+
+    @property
+    def streamable(self):  # center-padding needs the whole signal
+        return not self.center and self.output != "complex"
+
+    def validate_chunk(self, n_in):
+        super().validate_chunk(n_in)
+        if self.center:
+            raise AudioError("Cqt: streaming requires center=False", code=ErrorCode.CONFIG_VALIDATION_ERROR)
+
+    def out_len(self, n_in):
+        return n_in // self.hop
+
+    @property
+    def _carry_len(self) -> int:
+        # the frame span F0 is a hop multiple by construction
+        f0 = cqt_ops.cqt_window_length(
+            self._rate(), self.hop, self.n_bins, self.fmin, self.bins_per_octave, self.filter_scale
+        )
+        return f0 - self.hop
+
+    def latency(self, n_in):
+        return self._carry_len // self.hop
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        return torch.zeros((*lead_shape, self._carry_len), dtype=dtype, device=device)
+
+    def step(self, carry, chunk):
+        buf = torch.cat([carry, chunk], dim=-1)
+        return buf[..., buf.shape[-1] - self._carry_len :], self._cqt(buf, False)
+
+
+@register_node
+@dataclass(frozen=True)
+class Icqt(Node):
+    """Complex constant-Q coefficients ``[..., F, n_bins]`` (a
+    ``Cqt(output="complex")`` at the SAME parameters) -> waveform
+    (``ops/cqt.py::icqt``; ``method="auto"`` picks the painless dual for fine
+    hops and the hybrid inverse past the painless cliff, which reconstructs
+    tonal content only there). Offline only: the dual support spans ``nd/2``
+    samples each side."""
+
+    hop: int = 256
+    n_bins: int = 84
+    fmin: float = cqt_ops.FMIN_C1
+    bins_per_octave: int = 12
+    window: str = "hann"
+    filter_scale: float = 1.0
+    center: bool = True
+    method: str = "auto"
+    precision: str | None = None
+    sample_rate: int | None = None
+    streamable = False
+
+    domain_in = "frames"
+    domain_out = "samples"
+
+    def apply(self, x):
+        if self.sample_rate is None:
+            raise AudioError("Icqt.sample_rate unresolved; set input_rate on the graph")
+        return cqt_ops.icqt(
+            x, self.sample_rate, self.hop, self.n_bins, self.fmin, self.bins_per_octave, self.window,
+            self.filter_scale, center=self.center, precision=self.precision, method=self.method,
+        )
+
+    def out_len(self, n_in):
+        return (n_in - 1) * self.hop
+
+
+@register_node
+@dataclass(frozen=True)
+class CqtRoundTripMultirate(Node):
+    """samples -> multirate CQT -> its inverse -> samples in one node
+    (``ops/cqt.py::cqt_multirate`` + ``icqt_multirate``, the broadband
+    invertible variant). The per-octave coefficients stay inside the node:
+    their octaves have different frame rates. Offline only."""
+
+    hop: int = 256
+    n_bins: int = 84
+    fmin: float = cqt_ops.FMIN_C1
+    bins_per_octave: int = 12
+    window: str = "hann"
+    filter_scale: float = 1.0
+    precision: str | None = None
+    sample_rate: int | None = None
+    streamable = False
+
+    def apply(self, x):
+        if self.sample_rate is None:
+            raise AudioError("CqtRoundTripMultirate.sample_rate unresolved; set input_rate on the graph")
+        c = cqt_ops.cqt_multirate(
+            x, self.sample_rate, self.hop, self.n_bins, self.fmin, self.bins_per_octave, self.window,
+            self.filter_scale, precision=self.precision,
+        )
+        return cqt_ops.icqt_multirate(c, length=x.shape[-1], precision=self.precision)
+
+
+@register_node
+@dataclass(frozen=True)
+class OnsetStrength(Node):
+    """Mel power frames -> onset envelope ``[..., F, 1]``
+    (``ops/rhythm.py::onset_strength``). Streaming carries the last ``lag``
+    frames (``n_bins`` sizes the carry); the offline zeros at frames < lag
+    come back through ``wants_first_index``."""
+
+    lag: int = 1
+    n_bins: int | None = None
+
+    domain_in = "frames"
+    domain_out = "frames"
+    wants_first_index = True
+
+    @property
+    def streamable(self):
+        return self.n_bins is not None
+
+    def apply(self, x):
+        return rhythm.onset_strength(x, self.lag)[..., None]
+
+    def validate_chunk(self, n_in):
+        super().validate_chunk(n_in)
+        if self.n_bins is None:
+            raise AudioError(
+                "OnsetStrength: streaming needs n_bins (the mel band count) to size the prev-frames carry",
+                code=ErrorCode.CONFIG_VALIDATION_ERROR,
+            )
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        return torch.zeros((*lead_shape, self.lag, self.n_bins), dtype=dtype, device=device)
+
+    def step(self, carry, chunk, first_index=None):
+        buf = torch.cat([carry, chunk], dim=-2)
+        env = rhythm.onset_strength(buf, self.lag)[..., self.lag :, None]
+        if first_index is not None:
+            # offline frames < lag are zero (nothing to difference against)
+            pos = torch.arange(chunk.shape[-2], device=chunk.device)[:, None]
+            env = torch.where(pos < first_index + self.lag, 0.0, env)
+        return buf[..., buf.shape[-2] - self.lag :, :], env
+
+
+@register_node
+@dataclass(frozen=True)
+class Tempo(Node):
+    """Onset envelope frames ``[..., F, 1]`` -> global tempo ``[..., 1, 1]``
+    in BPM (``ops/rhythm.py::tempo``). Offline only."""
+
+    hop: int = 256
+    start_bpm: float = 120.0
+    std_bpm: float = 1.0
+    max_tempo: float = 320.0
+    ac_size: float = 8.0
+    sample_rate: int | None = None
+    streamable = False
+
+    domain_in = "frames"
+    domain_out = "frames"
+
+    def apply(self, x):
+        if self.sample_rate is None:
+            raise AudioError("Tempo.sample_rate unresolved; set input_rate on the graph")
+        bpm = rhythm.tempo(
+            x[..., 0], self.sample_rate, self.hop, self.start_bpm, self.std_bpm, self.max_tempo, self.ac_size
+        )
+        return bpm[..., None, None]
+
+    def out_len(self, n_in):
+        return 1
+
+
+@register_node
+@dataclass(frozen=True)
+class BeatTrack(Node):
+    """Onset envelope frames ``[..., F, 1]`` -> beat mask ``[..., F, 1]``
+    (1.0 at beat frames; ``ops/rhythm.py::beat_track``, the Ellis DP).
+    Offline only."""
+
+    hop: int = 256
+    tightness: float = 100.0
+    max_period: int = 256
+    start_bpm: float = 120.0
+    sample_rate: int | None = None
+    streamable = False
+
+    domain_in = "frames"
+    domain_out = "frames"
+
+    def apply(self, x):
+        if self.sample_rate is None:
+            raise AudioError("BeatTrack.sample_rate unresolved; set input_rate on the graph")
+        mask, _ = rhythm.beat_track(
+            x[..., 0], self.sample_rate, self.hop, tightness=self.tightness, max_period=self.max_period,
+            start_bpm=self.start_bpm,
+        )
+        return mask.to(x.dtype)[..., None]
+
+
+@register_node
+@dataclass(frozen=True)
+class OnlineBeats(Node):
+    """Onset envelope frames ``[..., F, 1]`` -> ``[..., F, 2]`` of (beat
+    mask, BPM track) from the causal tracker
+    (``ops/rhythm.py::online_beat_track``), the streaming counterpart of
+    :class:`BeatTrack`. The carry is the tracker's dict; the latency is
+    ``post`` frames, and streamed equals offline at that shift."""
+
+    hop: int = 256
+    start_bpm: float = 120.0
+    std_bpm: float = 1.0
+    max_tempo: float = 320.0
+    max_lag: int = 256
+    ac_seconds: float = 8.0
+    pre: int = 3
+    post: int = 3
+    delta: float = 0.07
+    warmup_seconds: float = 2.0
+    sample_rate: int | None = None
+
+    domain_in = "frames"
+    domain_out = "frames"
+    wants_first_index = True
+
+    def _plan(self):
+        if self.sample_rate is None:
+            raise AudioError("OnlineBeats.sample_rate unresolved; set input_rate on the graph")
+        return rhythm.make_online_beat_plan(
+            self.sample_rate, self.hop, self.start_bpm, self.std_bpm, self.max_tempo, self.max_lag,
+            self.ac_seconds, self.pre, self.post, self.delta, self.warmup_seconds,
+        )
+
+    def apply(self, x):
+        self._plan()  # names an unresolved sample rate
+        beat, bpm = rhythm.online_beat_track(
+            x[..., 0], self.sample_rate, self.hop, start_bpm=self.start_bpm, std_bpm=self.std_bpm,
+            max_tempo=self.max_tempo, max_lag=self.max_lag, ac_seconds=self.ac_seconds, pre=self.pre,
+            post=self.post, delta=self.delta, warmup_seconds=self.warmup_seconds,
+        )
+        return torch.stack([beat.to(x.dtype), bpm.to(x.dtype)], dim=-1)
+
+    def latency(self, n_in):
+        return self.post
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        return rhythm.online_beat_init(self._plan(), lead_shape, dtype, device)
+
+    def step(self, carry, chunk, first_index=None):
+        carry, (beat, bpm) = rhythm.online_beat_step(
+            self._plan(), carry, chunk[..., 0], 0 if first_index is None else first_index
+        )
+        return carry, torch.stack([beat.to(chunk.dtype), bpm.to(chunk.dtype)], dim=-1)
 
 
 @register_node

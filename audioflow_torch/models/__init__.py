@@ -1,6 +1,8 @@
 """Standard pipeline constructors."""
 
 from .pipelines import (
+    beat_graph,
+    cqt_frontend,
     delta_fbank_frontend,
     denoise_master_chain,
     eq_bands_default,
@@ -9,6 +11,7 @@ from .pipelines import (
     kws_frontend,
     log_mel_frontend,
     master_chain_graph,
+    onset_frontend,
     stft_magnitude_graph,
     vad_graph,
     wire_egress_graph,
@@ -17,5 +20,5 @@ from .pipelines import (
 __all__ = [
     "eq_bands_default", "eq_chain_graph", "kaldi_fbank_frontend", "log_mel_frontend", "master_chain_graph",
     "stft_magnitude_graph", "vad_graph", "wire_egress_graph", "delta_fbank_frontend", "denoise_master_chain",
-    "kws_frontend",
+    "kws_frontend", "beat_graph", "cqt_frontend", "onset_frontend",
 ]

@@ -6,15 +6,18 @@ Each returns a :class:`~audioflow_torch.graph.Graph`.
 from __future__ import annotations
 
 from ..graph import (
+    BeatTrack,
     BiquadChain,
     Cmvn,
     Compressor,
+    Cqt,
     Deltas,
     Graph,
     Limiter,
     LogMelSpec,
     LoudnessNormalize,
     MelProject,
+    OnsetStrength,
     Pcen,
     Preemphasis,
     QuantizeI16,
@@ -25,6 +28,7 @@ from ..graph import (
     chain,
 )
 from ..ops import biquad as bq
+from ..ops.cqt import FMIN_C1
 
 
 def stft_magnitude_graph(
@@ -200,6 +204,55 @@ def vad_graph(
         Vad(frame_len, threshold_db, smoothing_factor, level=level),
         input_rate=sample_rate,
         name="vad",
+    )
+
+
+def cqt_frontend(
+    sample_rate: int = 16000,
+    hop: int = 256,
+    n_bins: int = 84,
+    fmin: float | None = None,
+    bins_per_octave: int = 12,
+) -> Graph:
+    """Constant-Q analysis frontend: samples -> CQT magnitude (streamable)."""
+    return chain(
+        Cqt(hop=hop, n_bins=n_bins, fmin=FMIN_C1 if fmin is None else fmin, bins_per_octave=bins_per_octave,
+            center=False),
+        input_rate=sample_rate,
+        name="cqt_frontend",
+    )
+
+
+def onset_frontend(
+    sample_rate: int = 16000, n_fft: int = 1024, hop: int = 256, n_mels: int = 64, lag: int = 1
+) -> Graph:
+    """Onset-strength envelope frontend (streamable): spectrogram -> linear
+    mel power -> rectified dB flux."""
+    return Graph(
+        (
+            Spectrogram(n_fft, hop, center=False, power=True),
+            MelProject(n_mels=n_mels, log=None),  # onset wants linear power
+            OnsetStrength(lag=lag, n_bins=n_mels),
+        ),
+        input_rate=sample_rate,
+        name="onset_frontend",
+    )
+
+
+def beat_graph(
+    sample_rate: int = 16000, n_fft: int = 1024, hop: int = 256, n_mels: int = 64, start_bpm: float = 120.0
+) -> Graph:
+    """Beat-tracking graph (offline): onset frontend -> Ellis DP beat mask
+    (1.0 at beat frames)."""
+    return Graph(
+        (
+            Spectrogram(n_fft, hop, center=False, power=True),
+            MelProject(n_mels=n_mels, log=None),
+            OnsetStrength(n_bins=n_mels),
+            BeatTrack(hop=hop, start_bpm=start_bpm),
+        ),
+        input_rate=sample_rate,
+        name="beat_graph",
     )
 
 

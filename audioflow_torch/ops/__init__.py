@@ -1,6 +1,8 @@
 """Signal ops of the port: plain torch on tensors, fp32 matmuls."""
 
-from . import biquad, decompose, dynamics, effects, features, fir, loudness, quantize, ring, vad
+from . import biquad, decompose, dynamics, effects, features, fir, loudness, quantize, rhythm, ring, vad
+from . import cqt as cqt_mod
+from ._mm import get_default_matmul_precision, set_default_matmul_precision
 from .biquad import (
     Biquad,
     allpass,
@@ -33,6 +35,20 @@ from .dynamics import (
     split_silence,
     to_mono,
     trim_silence,
+)
+from .cqt import (
+    FMIN_C1,
+    MultirateCqt,
+    chroma_cqt,
+    cqt,
+    cqt_frequencies,
+    cqt_lengths,
+    cqt_multirate,
+    cqt_window_length,
+    icqt,
+    icqt_max_hop,
+    icqt_multirate,
+    multirate_hops,
 )
 from .effects import chorus, feedback_delay, flanger, tremolo, vibrato
 from .decompose import hpss, hpss_mask, median_filter, nmf, nmf_separate, noise_profile, spectral_gate
@@ -76,6 +92,7 @@ from .mel import (
     dct_matrix,
     hz_to_mel,
     log_mel,
+    log_mel_fused,
     mel_filterbank,
     mel_to_audio,
     mel_to_hz,
@@ -86,8 +103,21 @@ from .mel import (
 )
 from .phase_vocoder import phase_vocoder, pitch_shift, time_stretch
 from .quantize import dequantize_i16, quantize_i16, quantize_i16_round
-from .pitch import cmnd_frames, pyin, pyin_frames, yin, yin_frames, yin_voicing
-from .resample import resample
+from .pitch import ACF_PRECISION_DEFAULT, cmnd_frames, pyin, pyin_frames, yin, yin_frames, yin_voicing
+from .resample import ResamplePlan, make_plan, resample, resample_apply
+from .rhythm import (
+    autocorrelate,
+    beat_track,
+    make_online_beat_plan,
+    online_beat_init,
+    online_beat_step,
+    online_beat_track,
+    onset_strength,
+    peak_pick,
+    tempo,
+    tempo_frequencies,
+    tempogram,
+)
 from .ring import Ring, ring_available, ring_clear, ring_free, ring_init, ring_read, ring_write
 from .sequence import max_plus_band, max_plus_band_argmax, transition_local
 from .stft import istft, magnitude, power, spectrogram, stft
@@ -115,4 +145,10 @@ __all__ = [
     "spectral_contrast", "spectral_features", "spectral_flatness", "spectral_flux", "spectral_gate",
     "spectral_rolloff", "stack_memory", "tonnetz", "tonnetz_basis", "tremolo", "true_peak", "vibrato",
     "zero_crossing_rate",
+    # the CQT and rhythm families, and the reference's remaining names
+    "ACF_PRECISION_DEFAULT", "FMIN_C1", "MultirateCqt", "ResamplePlan", "autocorrelate", "beat_track", "chroma_cqt",
+    "cqt", "cqt_frequencies", "cqt_lengths", "cqt_mod", "cqt_multirate", "cqt_window_length",
+    "get_default_matmul_precision", "icqt", "icqt_max_hop", "icqt_multirate", "log_mel_fused", "make_online_beat_plan",
+    "make_plan", "multirate_hops", "online_beat_init", "online_beat_step", "online_beat_track", "onset_strength",
+    "peak_pick", "resample_apply", "rhythm", "set_default_matmul_precision", "tempo", "tempo_frequencies", "tempogram",
 ]

@@ -18,10 +18,31 @@ torch.backends.cudnn.allow_tf32 = False
 
 PRECISIONS = ("default", "high", "highest")
 
+_default: str = "highest"
+
+
+def set_default_matmul_precision(name: str) -> None:
+    """Record the framework-wide precision name (the JAX package's API).
+    The port computes every product in fp32 whatever the name."""
+    global _default
+    if name not in PRECISIONS:
+        raise ValueError(f"unknown precision {name!r}; known: {sorted(PRECISIONS)}")
+    _default = name
+
+
+def get_default_matmul_precision() -> str:
+    """The name last given to :func:`set_default_matmul_precision`."""
+    return _default
+
+
+def check_precision(precision: str | None) -> None:
+    """Raise for a precision name the JAX package does not know."""
+    if precision is not None and precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; known: {sorted(PRECISIONS)}")
+
 
 def mm(a: torch.Tensor, b: torch.Tensor, precision: str | None = None) -> torch.Tensor:
     """fp32 matmul. ``precision`` takes the JAX package's names for API
     parity and is checked, but every name computes in full fp32."""
-    if precision is not None and precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}; known: {sorted(PRECISIONS)}")
+    check_precision(precision)
     return torch.matmul(a, b)

@@ -127,6 +127,38 @@ def log_mel(
     return floor_log(apply_mel(spec_power, fb), floor, log_base)
 
 
+def log_mel_fused(
+    x: torch.Tensor,
+    fb,
+    n_fft: int = 1024,
+    hop: int = 256,
+    window: str = "hann",
+    win_length: int | None = None,
+    center: bool = False,
+    floor: float = 1e-10,
+    log_base: str | None = "ln",
+    dft_precision: str | None = None,
+    fb_precision: str = "highest",
+) -> torch.Tensor:
+    """Log-mel features ``[..., frames, n_mels]`` of ``x [..., T]`` in one
+    call of the melspec kernel (:mod:`.kernels.melspec`), the function of the
+    JAX package's ``log_mel_fused``: on a CUDA tensor the kernel, on the CPU
+    its plain version. ``center`` reflect-pads as :func:`.stft.pad_center`;
+    ``log_base`` None or "none" keeps the floored linear mel. The two
+    precision names are accepted for parity; the port computes in fp32."""
+    del dft_precision, fb_precision
+    if n_fft % 2:
+        raise ValueError("log_mel_fused requires even n_fft")
+    from .kernels.melspec import mel_spectrogram
+    from .stft import dft_banks, pad_center, padded_window
+
+    if center:
+        x = pad_center(x, n_fft)
+    cosb, sinb = dft_banks(n_fft, window, win_length, x.device)
+    w = on_device(padded_window(n_fft, window, win_length), x.device)
+    return mel_spectrogram(x.contiguous(), cosb, sinb, w, _as_tensor(fb, x.device), hop, log_base, floor)
+
+
 def dct_matrix(n_in: int, n_out: int, norm: str | None = "ortho", dtype=np.float32) -> np.ndarray:
     """DCT-II basis ``[n_in, n_out]`` for MFCC as a matmul."""
     k = np.arange(n_out, dtype=np.float64)[None, :]

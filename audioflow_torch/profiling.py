@@ -1,6 +1,6 @@
 """Device-time breakdown of the port's paths on one CUDA card.
 
-    python -m audioflow_torch.profiling [logmel] [pvoc] [pitch] [griffinlim] [pyin] [master] [streaming]
+    python -m audioflow_torch.profiling [logmel] [pvoc] [pitch] [griffinlim] [pyin] [master] [streaming] [cqtroundtrip]
 
 Each path runs in two or three variants at the JAX benchmark's sizes
 (``audioflow_tpu/bench.py``, ``BENCHMARKS.md``): through the hand-written
@@ -34,7 +34,13 @@ and prints no result.
   ``log_mel_frontend(44100, 16000, 1024, 256, 128, eq=eq_bands_default(16000))``
   streamed over 256 x 10 s in 14,112-sample chunks (melspec kernel) vs the
   JAX benchmark's composition ``Resample -> BiquadChain -> Spectrogram ->
-  MelProject`` (plain torch).
+  MelProject`` (plain torch);
+* ``cqtroundtrip``: the CQT round trip of ``audioflow run -g cqtroundtrip``
+  on a batch of 32 x 10 s at 44.1 kHz (84 bins from C1, hop 256; no
+  kernel): ``hybrid`` (``cqt(output="complex")`` then ``icqt``, the hybrid
+  inverse) and its stages ``forward`` (the CQT), ``dual_conv`` (the
+  inverse's dual-branch conv) and ``sin_estimates`` (its sinusoid
+  estimates), and ``multirate`` (``cqt(multirate=True)`` then ``icqt``).
 """
 
 from __future__ import annotations
@@ -114,6 +120,23 @@ def _paths(dev):
         }
         return 256 * x.shape[-1] / 44100, {v: (lambda g=g: g.scan_stream(x, chunk)) for v, g in graphs.items()}
 
+    def cqtroundtrip():
+        from .ops import cqt, cqt_mod, icqt
+
+        x = torch.from_numpy(tone_batch(32, 10.0, 44100)).to(dev)
+        x = torch.nn.functional.pad(x, (0, -x.shape[-1] % 1024))
+        t = x.shape[-1]
+        c = cqt(x, 44100, output="complex")
+        dz = cqt_mod._hybrid_design(44100, 256, 84, cqt_mod.FMIN_C1, 12, "hann", 1.0)
+        ri = torch.cat([c.real[..., : dz["k_dual"]], c.imag[..., : dz["k_dual"]]], dim=-1)
+        return 32 * t / 44100, {
+            "hybrid": lambda: icqt(cqt(x, 44100, output="complex"), 44100, length=t),
+            "forward": lambda: cqt(x, 44100, output="complex"),
+            "dual_conv": lambda: cqt_mod._feature_conv(ri, dz["kern"]),
+            "sin_estimates": lambda: cqt_mod._sin_estimates(c.real, c.imag, dz, 44100, 256),
+            "multirate": lambda: icqt(cqt(x, 44100, multirate=True, output="complex")),
+        }
+
     return {
         "logmel": logmel,
         "pvoc": lambda: stretch(lambda x, impl: time_stretch(x, 1.25, impl=impl)),
@@ -122,6 +145,7 @@ def _paths(dev):
         "pyin": pyin_path,
         "master": master,
         "streaming": streaming,
+        "cqtroundtrip": cqtroundtrip,
     }
 
 

@@ -1,9 +1,10 @@
-"""Small shared utilities: rational-rate math, and input placement for the
-entry points."""
+"""Small shared utilities: rational-rate math, padding, and input placement
+for the entry points."""
 
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -29,6 +30,28 @@ def round_up(x: int, multiple: int) -> int:
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def pad_to(x: np.ndarray, length: int, axis: int = -1, value: float = 0.0) -> np.ndarray:
+    """Pad ``x`` along ``axis`` to ``length`` with ``value`` (no-op if long enough)."""
+    axis = axis % x.ndim
+    cur = x.shape[axis]
+    if cur >= length:
+        return x
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, length - cur)
+    return np.pad(x, widths, constant_values=value)
+
+
+def stack_padded(arrays: Sequence[np.ndarray], multiple: int = 1) -> tuple[np.ndarray, np.ndarray]:
+    """Stack variable-length 1-D arrays into [batch, T] plus a lengths vector;
+    T is the longest length rounded up to ``multiple``."""
+    if not arrays:
+        raise ValueError("empty batch")
+    lengths = np.array([a.shape[-1] for a in arrays], dtype=np.int32)
+    target = round_up(int(lengths.max()), multiple)
+    out = np.stack([pad_to(np.asarray(a), target) for a in arrays])
+    return out, lengths
 
 
 def as_tensor(x, device: torch.device | str | None = None) -> torch.Tensor:

@@ -1,14 +1,14 @@
 """Numerics validation of the port: each op against an independent float64
 serial oracle, with the JAX package's budgets.
 
-Mirrors ``audioflow_tpu/validate.py::run_validation`` for the rows whose
-ops the port has: the same inputs (every row draws from one seeded ``rng``
-in the reference's order, and a row not ported yet still consumes its
-draws), the same float64 numpy oracles, the same budgets and the same
-``pass`` terms over the rows present. The rows not ported yet are listed
-under ``rows_missing``, never filled in. On the card the kernel rows run the
-hand-written kernels (timestretch, melspec, viterbi through ``pyin``,
-griffinlim through ``griffin_lim``); on the CPU their plain versions.
+Mirrors ``audioflow_tpu/validate.py::run_validation``, all 23 rows: the
+same inputs (every row draws from one seeded ``rng`` in the reference's
+order), the same float64 numpy oracles, the same budgets (the hybrid
+inverse's two broadband rows in two-sided bands) and the same ``pass``
+terms. ``rows_missing`` names the rows not ported, none now. On the card
+the kernel rows run the hand-written kernels (timestretch, melspec, viterbi
+through ``pyin``, griffinlim through ``griffin_lim``); on the CPU their
+plain versions.
 """
 
 from __future__ import annotations
@@ -26,16 +26,8 @@ from .ops.vad import VadConfig
 from .utils import cdiv, rational_rate, resolve_device
 from .utils.cache import on_device
 
-# the reference's rows whose ops the port does not have yet (the CQT and its
-# inverses)
-ROWS_MISSING = (
-    "cqt_440_mag_err",
-    "icqt_painless_snr_db",
-    "icqt_tone_snr_db",
-    "icqt_hybrid_noise_snr_db",
-    "icqt_hybrid_harm_snr_db",
-    "icqt_multirate_noise_snr_db",
-)
+# the reference's rows whose ops the port does not have yet: none
+ROWS_MISSING = ()
 
 # rows that max_abs_err leaves out (their own budgets gate them), as in the
 # reference
@@ -58,7 +50,8 @@ _NOT_FLOAT = (
     "mel_nnls_rel",
 )
 
-# each row's budget and how it passes: "<" (below), "==" (equal)
+# each row's budget and how it passes: "<" (below), "==" (equal), "band"
+# (strictly between the two bounds)
 BUDGETS = {
     "max_abs_err": ("<", 1e-4),
     "vad_state_mismatches": ("==", 0),
@@ -71,6 +64,14 @@ BUDGETS = {
     "pyin_220_rel": ("<", 5e-3),
     "griffinlim_tone_err": ("<", 0.2),
     "mel_nnls_rel": ("<", 5e-3),
+    "cqt_440_mag_err": ("<", 5e-2),
+    "icqt_painless_snr_db": ("<", -30.0),
+    "icqt_tone_snr_db": ("<", -30.0),
+    # the hybrid's broadband rows are published as they are and gated
+    # two-sided: a sanity band around its documented tone-only behaviour
+    "icqt_hybrid_noise_snr_db": ("band", (-25.0, 10.0)),
+    "icqt_hybrid_harm_snr_db": ("band", (0.0, 25.0)),
+    "icqt_multirate_noise_snr_db": ("<", -30.0),
 }
 
 
@@ -78,6 +79,8 @@ def within_budget(key: str, value: float) -> bool:
     """Whether a row (or ``max_abs_err``) is inside its budget; a row gated
     only through ``max_abs_err`` checks against 1e-4."""
     op, bound = BUDGETS.get(key, ("<", 1e-4))
+    if op == "band":
+        return bound[0] < value < bound[1]
     return value == bound if op == "==" else value < bound
 
 
@@ -237,9 +240,55 @@ def run_validation(seed: int = 0, device=None) -> dict:
     f0 = host(ops.yin(on(xy), 16000, fmin=80, fmax=1200))
     report["yin_220_rel"] = float(np.abs(f0[4:-4] - 220.0).max() / 220.0)
 
-    # (cqt_440_mag_err, icqt_painless_snr_db: not ported; no draws.) The
-    # hybrid icqt rows draw their band noise: consumed here at the same length
-    rng.standard_normal(64000)
+    # the CQT: a 440 Hz tone lands in its bin (2 octaves above fmin=110) at
+    # the unit-amplitude convention; |mag - 1| there, 1.0 if the argmax bin
+    # is wrong
+    tq = np.arange(16000, dtype=np.float64) / 16000.0
+    cq = host(ops.cqt(on(np.sin(2 * np.pi * 440.0 * tq)), 16000, n_bins=48, fmin=110.0))
+    mid = cq[cq.shape[0] // 2]
+    report["cqt_440_mag_err"] = float(abs(mid[24] - 1.0)) if int(np.argmax(mid)) == 24 else 1.0
+
+    def snr_db(y: np.ndarray, x: np.ndarray) -> np.ndarray:
+        e = y - x
+        return 10.0 * np.log10((x**2).sum(axis=-1) / np.maximum((e**2).sum(axis=-1), 1e-30))
+
+    # the painless icqt: worst tone round trip over bins 0, 24, 47 at hop 48
+    # (icqt_max_hop 54 for 48 bins from 110 Hz), negated: >= 30 dB passes
+    icqt_freqs = ops.cqt_frequencies(48, 110.0)
+    xt = np.stack([np.sin(2 * np.pi * icqt_freqs[k] * np.arange(24000) / 16000.0) for k in (0, 24, 47)])
+    yt = host(ops.icqt(ops.cqt(on(xt), 16000, 48, 48, 110.0, output="complex"), 16000, 48, 48, 110.0,
+                       length=24000))
+    report["icqt_painless_snr_db"] = -float(snr_db(yt[:, 8000:16000], xt.astype(np.float32)[:, 8000:16000]).min())
+
+    # the hybrid icqt at the framework defaults (hop 256, 84 bins from C1):
+    # worst tone SNR over the structurally worst bins (negated), and its
+    # broadband envelope as it is: 800-2000 Hz band noise and a 150 Hz
+    # harmonic complex
+    hyb_bins = (0, 1, 21, 41, 42, 43, 44, 63, 82, 83)
+    hyb_freqs = ops.cqt_frequencies(84)
+    t_hyb = 64000  # 4 s: the LS dual support is nd/2 = 16896 per edge
+    nv = np.arange(t_hyb)
+    rows_h = [np.sin(2 * np.pi * hyb_freqs[k] * nv / 16000.0) for k in hyb_bins]
+    zf = np.fft.rfft(rng.standard_normal(t_hyb))
+    fgrid = np.fft.rfftfreq(t_hyb, 1.0 / 16000.0)
+    zf[(fgrid < 800.0) | (fgrid > 2000.0)] = 0
+    noise_hi = np.fft.irfft(zf, t_hyb)
+    noise_hi /= np.abs(noise_hi).max() * 2.0
+    harm = sum((0.5 / (i + 1)) * np.sin(2 * np.pi * 150.0 * (i + 1) * nv / 16000.0) for i in range(12))
+    xb_h = np.stack(rows_h + [noise_hi, harm]).astype(np.float32)
+    yb_h = host(ops.icqt(ops.cqt(on(xb_h), 16000, 256, 84, output="complex"), 16000, 256, 84, length=t_hyb))
+    lo, hi = 17000, t_hyb - 17000
+    snr_h = snr_db(yb_h[:, lo:hi], xb_h[:, lo:hi])
+    report["icqt_tone_snr_db"] = -float(snr_h[: len(hyb_bins)].min())
+    report["icqt_hybrid_noise_snr_db"] = float(snr_h[len(hyb_bins)])
+    report["icqt_hybrid_harm_snr_db"] = float(snr_h[len(hyb_bins) + 1])
+
+    # the multirate CQT's broadband inverse on the same noise and harmonic
+    # complex, the top-octave skirt tones (bins 79-81) and the edge pair
+    mr_tones = [np.sin(2 * np.pi * hyb_freqs[k] * nv / 16000.0) for k in (0, 79, 80, 81, 83)]
+    xb_m = np.stack([noise_hi, harm] + mr_tones).astype(np.float32)
+    yb_m = host(ops.icqt(ops.cqt(on(xb_m), 16000, multirate=True, output="complex"), length=t_hyb))
+    report["icqt_multirate_noise_snr_db"] = -float(snr_db(yb_m[:, lo:hi], xb_m[:, lo:hi]).min())
 
     # the matmul-ACF banks against the FFT correlation, relative to acf(0)
     xa = (0.4 * np.sin(2 * np.pi * 220.0 * np.arange(4096) / 16000.0)).astype(np.float32) + (

@@ -4,10 +4,12 @@ Drives the port's ported paths through the hand-written CUDA kernels,
 BASELINE configs 3 and 5 through the biquad engine and the melspec kernel,
 the file path (decode, staging ring, batch runner, sinks) through
 ``audioflow run``, the validate report, the dictation path (stream
-session, VAD, i16 wire egress over a WebSocket), and the mastering, effects
+session, VAD, i16 wire egress over a WebSocket), the mastering, effects
 and feature families (denoise mastering, keyword spotting, the effects
-chain, the feature graphs, the loudness meter, NMF separation), and checks
-them. The log-mel frontend
+chain, the feature graphs, the loudness meter, NMF separation), and the CQT
+and rhythm families (the CQT and its inverses, ``run -g
+cqt|cqtroundtrip|onset|beats``, tempo, the beat DP, the streaming beat
+graph), and checks them. The log-mel frontend
 ``log_mel_frontend(44100, 16000, 1024, 256, 128, center=False)`` streamed in
 14,112-sample chunks over a 512 x 10 s tone batch (kernel ``melspec``);
 BASELINE config 4, time-stretch and pitch-shift, offline through
@@ -109,9 +111,10 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
     batch, and the device busy share of the run under torch.profiler;
 22. the validate report: ``run_validation`` in the process with every
     kernel's launches counted from 0 (each row set launches a kernel), then
-    ``python -m audioflow_torch.cli validate`` in a subprocess: exit 0, 17
-    rows and the 6 missing (the CQT's) listed, each row printed beside its
-    budget, ``loudness_997_anchor_lu`` and ``fir_direct`` among them;
+    ``python -m audioflow_torch.cli validate`` in a subprocess: exit 0, all
+    23 rows and none missing, each row printed beside its budget (the CQT's
+    six among them, the hybrid inverse's broadband rows in their two-sided
+    bands);
 23. the stream session at the JAX bench's width (``bench.py:196-245``):
     ``StreamSession(log_mel_frontend(44100, 16000, 1024, 256, 128))`` with
     lead (64,) over 64 x 10 s of the tone batch, chunk 14,112, pushed a
@@ -161,7 +164,29 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
 30. ``audioflow loudness`` of a 997 Hz 0 dBFS sine (-3.01 LKFS within
     0.01) and ``audioflow separate -k 2`` of 30 s of two tones (the
     components sum to the input within 1e-4 of its peak; the 16-bit WAVs
-    within the format's round trip of them); nmf's aten ops.
+    within the format's round trip of them); nmf's aten ops;
+31. the CQT at the framework default (84 bins from C1, hop 256) on 64 x 10 s
+    of the tone batch at 16 kHz: each impl on the card against the CPU on 4
+    lanes (1e-5 of the peak), its ms, peak memory and aten ops; the onedot
+    product as a hop-block conv against the matmul on the framed view (ms,
+    peak memory, the bound); ``chroma_cqt``; ``cqt_frontend`` streamed in
+    16,384-sample chunks against offline at its latency; the painless,
+    hybrid and multirate round trips at validate's configs inside its
+    budgets, the multirate round trip of the tone batch >= 30 dB inside the
+    CQT's band, and each round trip timed at 64 x 10 s;
+32. ``run -g cqt``, ``run -g cqtroundtrip`` and ``run -g cqtroundtrip
+    --multirate`` with ``--batch-size 32`` over phase 19's 256 files: the
+    first batch exactly the graph called directly, audio-s/s, host decode
+    and graph ms a batch, which sets the pace, peak device memory, and the
+    multirate round trip of each file >= 30 dB inside the CQT's band;
+33. ``run -g onset`` and ``run -g beats`` the same way; the tempo of click
+    tracks at 90, 120 and 150 BPM; ``beat_track`` of 64 click tracks of 30 s
+    on the card equal to the CPU's mask wherever the DP's margins are clear
+    (the frames left out counted); the streaming beat graph
+    (``Spectrogram -> MelProject -> OnsetStrength -> OnlineBeats``) over the
+    same tracks in 16,384-sample chunks equal to offline at its latency
+    where its decisions are clear; aten ops per envelope frame of
+    ``beat_track`` and ``OnlineBeats``; no kernel launched on phases 31-33.
 
 Every device time (phases 3, 6, 9, 12) is the median of three readings
 under torch.profiler, printed with the readings and the device events per
@@ -294,6 +319,29 @@ FEATURE_TOLS = {"features": ("rel", 2e-5), "chroma": ("rel", 2e-5), "contrast": 
 ANCHOR_LU_TOL = 0.01
 SEPARATE_SECONDS = 30.0
 SEPARATE_TOL = 1e-4
+# the CQT (phases 31-32) at the framework default (84 bins from C1, hop 256):
+# 64 x 10 s of the tone batch at 16 kHz, and phase 19's 256 files at 44.1 kHz
+CQT_BATCH = 64
+# the card against the CPU, of the peak: the CPU tests' tolerances
+# (tests/test_torch_cqt.py FWD_TOL and INV_TOL); streamed against offline on
+# the card, the same frames from cuDNN at two input shapes: FWD_TOL too
+CQT_TOL = 1e-5
+ICQT_TOL = 2e-5
+# validate's round-trip budgets (icqt_painless_snr_db, icqt_tone_snr_db,
+# icqt_multirate_noise_snr_db: >= 30 dB; the hybrid's broadband rows in
+# their two-sided bands)
+SNR_DB = 30.0
+# rhythm (phase 33): 64 click tracks of 30 chunks of 16,384 samples (30.72 s)
+# at 16 kHz, tempi 70-180 BPM, clicks to the end: a zero-padded tail would
+# tie the beat DP's scores, which no margin clears; the tempo of a click
+# track within one lag's step (tests/test_torch_rhythm.py)
+RHYTHM_CHUNKS = 30
+BPM_TOL = 1.5
+# decision margins (tests/decision_margins.py): the beat DP's scores, the
+# causal tracker's envelope comparisons, weighted autocorrelations (relative)
+DP_MARGIN = 1e-3
+ENV_MARGIN = 1e-5
+LAG_MARGIN = 1e-5
 
 
 def rfft_flops(n: int) -> float:
@@ -726,8 +774,7 @@ def dictation(dev: torch.device, card: str) -> dict:
     check(proc.returncode == 0, f"audioflow validate exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
     cli_report = json.loads(proc.stdout)
     rows = {k: v for k, v in cli_report.items() if k not in ("pass", "max_abs_err", "rows_missing")}
-    check(len(rows) == 17 and len(ROWS_MISSING) == 6 and cli_report["rows_missing"] == list(ROWS_MISSING)
-          and cli_report["pass"],
+    check(len(rows) == 23 and ROWS_MISSING == () and cli_report["rows_missing"] == [] and cli_report["pass"],
           f"validate report rows {sorted(rows)}, missing {cli_report['rows_missing']}")
     bad = [k for k, v in {**rows, "max_abs_err": cli_report["max_abs_err"]}.items() if not within_budget(k, v)]
     check(not bad and report["pass"], f"validate rows over budget: {bad}")
@@ -946,6 +993,387 @@ def dictation(dev: torch.device, card: str) -> dict:
           f"loopback server: {n_wire} chunks, the server's audio exactly the card's i16 ({want_i16.size} samples), "
           f"transcript {texts}; with a drop after 3 chunks: {srv2.connections} connections, {srv2.configures} "
           f"configures, {received} of {n_wire} chunks received in order, transcript {texts2}")
+    return out
+
+
+def _snr_db(y: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """Round-trip SNR per row, as validate computes it."""
+    e = y - x
+    return 10.0 * np.log10((x**2).sum(axis=-1) / np.maximum((e**2).sum(axis=-1), 1e-30))
+
+
+def _inband_snr_db(y: np.ndarray, x: np.ndarray, rate: int, lo_hz: float, hi_hz: float, trim: int) -> np.ndarray:
+    """Round-trip SNR per row inside the CQT's band: output and input both
+    limited to ``[lo_hz, hi_hz]`` (a mask on their FFTs, 32 rows at a time),
+    then compared away from ``trim`` samples at each edge. The transform
+    measures nothing outside its band (the tone batch's white noise reaches
+    Nyquist), so an inverse can return only what lies inside it."""
+    out = []
+    f = np.fft.rfftfreq(x.shape[-1], 1.0 / rate)
+    keep = (f >= lo_hz) & (f <= hi_hz)
+    for i in range(0, x.shape[0], 32):
+        yb, xb = (np.fft.irfft(np.fft.rfft(np.asarray(a[i : i + 32], np.float64)) * keep, x.shape[-1])
+                  for a in (y, x))
+        out.append(_snr_db(yb[:, trim:-trim], xb[:, trim:-trim]))
+    return np.concatenate(out)
+
+
+def _click_batch(bpms, n: int, rate: int, seed: int) -> np.ndarray:
+    """Click tracks of ``n`` samples at ``bpms``: 10 ms noise bursts at each
+    beat over -40 dB noise (tests/test_torch_rhythm.py's ``_click_audio``)."""
+    rng = np.random.default_rng(seed)
+    x = 0.01 * rng.standard_normal((len(bpms), n))
+    burst = rng.standard_normal(160) * np.hanning(160)
+    for row, bpm in zip(x, bpms):
+        for s in np.arange(0.0, n - 160, 60.0 * rate / bpm):
+            row[int(s) : int(s) + 160] += burst
+    return x.astype(np.float32)
+
+
+def _dp_clear_from(env: torch.Tensor, rate: int) -> list:
+    """Per lane of ``env [B, T]`` (on the CPU), the first frame from which
+    the beat DP's decisions clear DP_MARGIN (tests/decision_margins.py):
+    a best predecessor or its sign unclear at a beat of the CPU's path can
+    move every beat before it, so the frames up to it are left out; an
+    unclear tempo lag or best final beat leaves the lane out (None)."""
+    from audioflow_torch.ops import rhythm
+
+    max_lag = min(int(round(8.0 * rate / 256)), env.shape[-1] - 1)
+    ac = rhythm.autocorrelate(env, max_lag=max_lag).double()
+    prior = rhythm._bpm_prior(rhythm.tempo_frequencies(max_lag + 1, rate, 256), 120.0, 1.0, 320.0)
+    lags = (ac * torch.from_numpy(prior.astype(np.float32)).double()).topk(2, dim=-1).values
+    tempo_ok = (lags[:, 0] - lags[:, 1]) / lags[:, 0] > LAG_MARGIN
+    dp = rhythm._beat_dp(env, rate, 256, None, 100.0, 256, 120.0)
+    mask = rhythm._backtrace(dp["scores"], dp["backgaps"])
+    scores, cost = dp["scores"].double(), dp["cost"].double()
+    w = cost.shape[-1]
+    buf = torch.cat([scores.new_full((scores.shape[0], w), -np.inf), scores[:, :-1]], dim=-1)
+    top = (buf.unfold(-1, w, 1) + cost[:, None, :]).topk(2, dim=-1).values  # [B, T, 2]
+    gap_ok = ~torch.isfinite(top[..., 0]) | (top[..., 0] - top[..., 1] > DP_MARGIN)
+    sign_ok = ~torch.isfinite(top[..., 0]) | (top[..., 0].abs() > DP_MARGIN)
+    unclear = mask & ~(gap_ok & sign_ok)
+    last = scores.topk(2, dim=-1).values
+    last_ok = last[:, 0] - last[:, 1] > DP_MARGIN
+    out = []
+    for b in range(env.shape[0]):
+        if not (bool(tempo_ok[b]) and bool(last_ok[b])):
+            out.append(None)
+            continue
+        bad = torch.nonzero(unclear[b]).flatten()
+        out.append(int(bad[-1]) + 1 if bad.numel() else 0)
+    return out
+
+
+def _online_clear_until(env: np.ndarray, plan, env_diff: float) -> np.ndarray:
+    """Per lane of ``env [B, T]``, the first aligned frame that an unclear
+    decision of the causal tracker can reach (T where none is), from a
+    float64 run of its state (tests/decision_margins.py's
+    ``online_margins_clear``, per lane): a flipped peak test or best lag
+    changes the beat clock from that step on."""
+    b, n = env.shape
+    e64 = env.astype(np.float64)
+    acf = np.zeros((b, plan.max_lag + 1))
+    ring = np.zeros_like(acf)
+    win = np.zeros((b, plan.pre + plan.post + 1))
+    emean = np.zeros(b)
+    prior = plan.prior.astype(np.float64)
+    slack = ENV_MARGIN + 2 * env_diff
+    until = np.full(b, n)
+    for t in range(n):
+        e = e64[:, t]
+        ring = np.concatenate([e[:, None], ring[:, :-1]], 1)
+        acf = plan.rho * acf + e[:, None] * ring
+        s = np.sort(acf * prior, axis=-1)
+        lag_bad = (s[:, -1] > 0) & ((s[:, -1] - s[:, -2]) <= (LAG_MARGIN + 4 * env_diff) * s[:, -1])
+        win = np.concatenate([e[:, None], win[:, :-1]], 1)
+        cand = win[:, plan.post]
+        over = cand - (emean + plan.delta)
+        runner = cand - np.delete(win, plan.post, axis=1).max(axis=1)
+        peak_bad = ((over > -slack) & (np.abs(runner) <= slack)) | ((runner > -slack) & (np.abs(over) <= slack))
+        hit = (lag_bad | peak_bad) & (until == n)
+        until[hit] = max(0, t - plan.post)
+        emean = 0.95 * emean + 0.05 * e
+    return until
+
+
+def cqt_rhythm(dev: torch.device, card: str) -> dict:
+    """Phases 31-33: the CQT family and the rhythm family through the port's
+    entry points: the CQT and its three inverses on the card against the CPU
+    and validate's budgets, ``audioflow run -g cqt|cqtroundtrip|onset|beats``
+    over phase 19's files, the tempo of click tracks, the beat DP on the card
+    against the CPU, and the streaming beat graph. Returns their numbers."""
+    import os
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from audioflow_torch import cli, ops
+    from audioflow_torch.config import ConfigManager
+    from audioflow_torch.graph import MelProject, OnlineBeats, OnsetStrength, Spectrogram, Tempo, chain
+    from audioflow_torch.io import decode_batch, write_wav
+    from audioflow_torch.models import cqt_frontend, onset_frontend
+    from audioflow_torch.ops import cqt_mod, rhythm
+    from audioflow_torch.ops.kernels import griffinlim, melspec, timestretch, viterbi
+    from audioflow_torch.profiling import aten_ops, profile, tone_batch
+
+    kernels = {"melspec": melspec, "timestretch": timestretch, "griffinlim": griffinlim, "viterbi": viterbi}
+    for k in kernels.values():
+        k.COUNT.launches = 0
+    out = {}
+
+    def rel(got: torch.Tensor, want: torch.Tensor) -> float:
+        return float((got.cpu() - want).abs().max() / want.abs().max())
+
+    def peak_mb(fn) -> float:
+        """Device memory that one call of ``fn`` takes beyond what is held."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+    # phase 31: the CQT on the card, at the framework default on 64 x 10 s
+    x_np = tone_batch(CQT_BATCH, SECONDS, 16000, SEED)
+    x = torch.from_numpy(x_np).to(dev)
+    x4 = torch.from_numpy(x_np[:4])
+    audio = CQT_BATCH * SECONDS
+    impls = {}
+    for impl in ("onedot", "split", "direct"):
+        err = rel(ops.cqt(x[:4], 16000, impl=impl, output="complex"), ops.cqt(x4, 16000, impl=impl, output="complex"))
+        check(err <= CQT_TOL, f"cqt impl={impl} on the card vs the CPU {err} > {CQT_TOL}")
+        ms = cuda_ms(lambda impl=impl: ops.cqt(x, 16000, impl=impl), 5)
+        impls[impl] = {"err": err, "ms": ms, "audio_s_per_s": audio / ms * 1e3,
+                       "peak_mb": peak_mb(lambda impl=impl: ops.cqt(x, 16000, impl=impl)),
+                       "aten_ops": aten_ops(lambda impl=impl: ops.cqt(x, 16000, impl=impl))}
+    f0, _, bank = cqt_mod._design(16000, 256, 84, cqt_mod.FMIN_C1, 12, "hann", 1.0)
+    xp = F.pad(x, (f0 // 2, f0 - f0 // 2))
+    n_fr = (xp.shape[-1] - f0) // 256 + 1
+    forms = {}
+    for form in ("conv", "unfold"):
+        forms[form] = {"ms": cuda_ms(lambda form=form: cqt_mod._framed_dot(xp, bank, 256, n_fr, form), 5),
+                       "peak_mb": peak_mb(lambda form=form: cqt_mod._framed_dot(xp, bank, 256, n_fr, form))}
+    form_err = rel(cqt_mod._framed_dot(xp, bank, 256, n_fr, "conv"), cqt_mod._framed_dot(xp, bank, 256, n_fr, "unfold").cpu())
+    check(form_err <= CQT_TOL, f"cqt product forms differ by {form_err}")
+    flops = 2.0 * CQT_BATCH * n_fr * f0 * bank.shape[1]
+    onedot_bound, onedot_by = bound_ms(flops, 4.0 * (xp.numel() + bank.size + CQT_BATCH * n_fr * bank.shape[1]))
+    chroma_err = rel(ops.chroma_cqt(x[:4], 16000), ops.chroma_cqt(x4, 16000))
+    check(chroma_err <= CQT_TOL, f"chroma_cqt on the card vs the CPU {chroma_err}")
+    # cqt_frontend streamed in 16,384-sample chunks against offline
+    g = cqt_frontend(16000)
+    xs = F.pad(x, (0, -x.shape[-1] % EFFECTS_CHUNK))
+    lat = g.stream_latency(EFFECTS_CHUNK)
+    streamed = g.scan_stream(xs, EFFECTS_CHUNK)
+    offline = g.chain(xs)
+    n_st = streamed.shape[1] - lat
+    stream_err = rel(streamed[:, lat:], offline[:, :n_st].cpu())
+    check(stream_err <= CQT_TOL, f"cqt_frontend streamed vs offline {stream_err} > {CQT_TOL}")
+    stream_ms = cuda_ms(lambda: g.scan_stream(xs, EFFECTS_CHUNK), 1, warmup=1)
+    state = g.init_state(EFFECTS_CHUNK, (CQT_BATCH,), device=dev)
+    chunk_ops = aten_ops(lambda: g.stream_step(state, xs[:, :EFFECTS_CHUNK]))
+    del streamed, offline, xp
+    print(f"phase 31 cqt ({card}): the framework default (84 bins from C1, hop 256, F0 {f0}) on {CQT_BATCH} x "
+          f"{x.shape[-1]} at 16 kHz; per impl (card vs CPU on 4 lanes, complex, tol {CQT_TOL}; magnitude ms by CUDA "
+          f"events; peak MB beyond the input; aten ops a call): "
+          + "; ".join(f"{k} {v['err']:.2e}, {v['ms']:.3f} ms = {v['audio_s_per_s']:.0f} audio-s/s, "
+                      f"{v['peak_mb']:.1f} MB, {v['aten_ops']} ops" for k, v in impls.items())
+          + f"; the onedot product as a hop-block conv {forms['conv']['ms']:.3f} ms, {forms['conv']['peak_mb']:.1f} MB"
+          f" against the matmul on the framed view {forms['unfold']['ms']:.3f} ms, {forms['unfold']['peak_mb']:.1f} MB"
+          f" (differ {form_err:.2e}); its bound {onedot_bound:.3f} ms ({onedot_by}: {flops / 1e9:.1f} GFLOP); "
+          f"chroma_cqt vs CPU {chroma_err:.2e}; cqt_frontend streamed in {EFFECTS_CHUNK}-sample chunks vs offline "
+          f"{stream_err:.2e} at latency {lat} frames, {stream_ms:.1f} ms = {audio / stream_ms * 1e3:.0f} audio-s/s, "
+          f"{chunk_ops} aten ops a chunk")
+    out["cqt"] = {"impls": impls, "forms": forms, "bound_ms": onedot_bound, "stream_ms": stream_ms}
+
+    # the three inverses at validate's configs and budgets, then timed at 64 x 10 s
+    rng = np.random.default_rng(SEED)
+    fr48 = ops.cqt_frequencies(48, 110.0)
+    xt = np.stack([np.sin(2 * np.pi * fr48[k] * np.arange(24000) / 16000.0) for k in (0, 24, 47)]).astype(np.float32)
+    yt = ops.icqt(ops.cqt(torch.from_numpy(xt).to(dev), 16000, 48, 48, 110.0, output="complex"), 16000, 48, 48, 110.0,
+                  length=24000).cpu().numpy()
+    snr_p = _snr_db(yt[:, 8000:16000], xt[:, 8000:16000])
+    f84 = ops.cqt_frequencies(84)
+    nv = np.arange(64000)
+    zf = np.fft.rfft(rng.standard_normal(64000))
+    fg = np.fft.rfftfreq(64000, 1.0 / 16000.0)
+    zf[(fg < 800.0) | (fg > 2000.0)] = 0
+    noise = np.fft.irfft(zf, 64000)
+    noise /= np.abs(noise).max() * 2.0
+    harm = sum((0.5 / (i + 1)) * np.sin(2 * np.pi * 150.0 * (i + 1) * nv / 16000.0) for i in range(12))
+    hyb_bins = (0, 1, 21, 41, 42, 43, 44, 63, 82, 83)
+    xh = np.stack([np.sin(2 * np.pi * f84[k] * nv / 16000.0) for k in hyb_bins] + [noise, harm]).astype(np.float32)
+    yh = ops.icqt(ops.cqt(torch.from_numpy(xh).to(dev), 16000, output="complex"), 16000, length=64000).cpu().numpy()
+    snr_h = _snr_db(yh[:, 17000:47000], xh[:, 17000:47000])
+    xm = np.stack([noise, harm] + [np.sin(2 * np.pi * f84[k] * nv / 16000.0) for k in (0, 79, 80, 81, 83)])
+    xm = xm.astype(np.float32)
+    ym = ops.icqt(ops.cqt(torch.from_numpy(xm).to(dev), 16000, multirate=True, output="complex"), length=64000)
+    snr_m = _snr_db(ym.cpu().numpy()[:, 17000:47000], xm[:, 17000:47000])
+    check(snr_p.min() >= SNR_DB and snr_h[:10].min() >= SNR_DB and -25.0 < snr_h[10] < 10.0 and 0.0 < snr_h[11] < 25.0
+          and snr_m.min() >= SNR_DB, f"round trips: painless {snr_p}, hybrid {snr_h}, multirate {snr_m}")
+    trips = {
+        "painless (hop 48, 48 bins from 110 Hz)": lambda: ops.icqt(
+            ops.cqt(x, 16000, 48, 48, 110.0, output="complex"), 16000, 48, 48, 110.0, length=x.shape[-1]),
+        "hybrid": lambda: ops.icqt(ops.cqt(x, 16000, output="complex"), 16000, length=x.shape[-1]),
+        "multirate": lambda: ops.icqt(ops.cqt(x, 16000, multirate=True, output="complex")),
+    }
+    trip_rows = {}
+    for name, fn in trips.items():
+        trip_rows[name] = {"ms": cuda_ms(fn, 2, warmup=1), "peak_mb": peak_mb(fn), "aten_ops": aten_ops(fn)}
+    y_mr = trips["multirate"]().cpu().numpy()
+    band = (cqt_mod.FMIN_C1, float(ops.cqt_frequencies(84)[-1]))
+    snr_big = _inband_snr_db(y_mr, x_np, 16000, *band, 17000)
+    check(snr_big.min() >= SNR_DB, f"multirate round trip of the tone batch in its band: {snr_big.min():.2f} dB")
+    del y_mr
+    print(f"phase 31 icqt ({card}): at validate's configs the painless round trip {snr_p.min():.2f} dB worst tone, "
+          f"the hybrid {snr_h[:10].min():.2f} dB worst tone, band noise {snr_h[10]:.2f} dB (band -25..10), harmonic "
+          f"complex {snr_h[11]:.2f} dB (band 0..25), the multirate {snr_m.min():.2f} dB worst (budgets {SNR_DB} dB); "
+          f"the multirate round trip of the {CQT_BATCH} x 10 s tone batch inside the CQT's band ({band[0]:.1f}-"
+          f"{band[1]:.1f} Hz) {snr_big.min():.2f} dB worst lane; round "
+          f"trips of {CQT_BATCH} x 10 s (CUDA events, peak MB, aten ops): "
+          + "; ".join(f"{k} {v['ms']:.2f} ms = {audio / v['ms'] * 1e3:.0f} audio-s/s, {v['peak_mb']:.0f} MB, "
+                      f"{v['aten_ops']} ops" for k, v in trip_rows.items()))
+    out["icqt"] = {"snr_painless": float(snr_p.min()), "snr_hybrid_tone": float(snr_h[:10].min()),
+                   "snr_hybrid_noise": float(snr_h[10]), "snr_hybrid_harm": float(snr_h[11]),
+                   "snr_multirate": float(snr_m.min()), "snr_multirate_batch": float(snr_big.min()),
+                   "trips": trip_rows}
+    del x, x4
+
+    # phases 32-33 over phase 19's 256 files
+    cfg = ConfigManager().current()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cqt_") as tmp:
+        x_np = tone_batch(FILES, SECONDS, RATE, SEED)
+        for i, row in enumerate(x_np):
+            write_wav(os.path.join(tmp, f"f{i:03d}.wav"), row, RATE)
+        del x_np
+        glob = os.path.join(tmp, "f*.wav")
+        files = sorted(os.path.join(tmp, n) for n in os.listdir(tmp))
+        stride = 1024 * -(-int(SECONDS * RATE) // 1024)
+        decoded = decode_batch(files, stride=stride)
+        buf = np.empty((FILE_BATCH, stride), np.float32)
+        decode_s = [decode_batch(files[:FILE_BATCH], stride=stride, out=buf).decode_seconds for _ in range(3)]
+        decode_ms = float(np.median(decode_s)) * 1e3
+        x0 = torch.from_numpy(decoded.samples[:FILE_BATCH]).to(dev)
+        # the onedot product's two forms at the file path's shape (32 x 10 s at 44.1 kHz)
+        f0_44, _, bank44 = cqt_mod._design(RATE, 256, 84, cqt_mod.FMIN_C1, 12, "hann", 1.0)
+        xp0 = F.pad(x0, (f0_44 // 2, f0_44 - f0_44 // 2))
+        n44 = (xp0.shape[-1] - f0_44) // 256 + 1
+        forms44 = {form: {"ms": cuda_ms(lambda form=form: cqt_mod._framed_dot(xp0, bank44, 256, n44, form), 3),
+                          "peak_mb": peak_mb(lambda form=form: cqt_mod._framed_dot(xp0, bank44, 256, n44, form))}
+                   for form in ("conv", "unfold")}
+        del xp0
+        print(f"phase 32 cqt product ({card}): onedot at [{FILE_BATCH}, {stride}], 44.1 kHz (F0 {f0_44}, {n44} "
+              f"frames): hop-block conv {forms44['conv']['ms']:.3f} ms, {forms44['conv']['peak_mb']:.0f} MB; matmul on "
+              f"the framed view {forms44['unfold']['ms']:.3f} ms, {forms44['unfold']['peak_mb']:.0f} MB")
+        out["cqt"]["forms_44k"] = forms44
+        runs = {}
+        # phase 32: the CQT graphs; phase 33: the rhythm graphs
+        for name, multirate in (("cqt", False), ("cqtroundtrip", False), ("cqtroundtrip", True), ("onset", False),
+                                ("beats", False)):
+            label = name + (" --multirate" if multirate else "")
+            npy = os.path.join(tmp, f"{name}{'_mr' if multirate else ''}.npy")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            line = run_cli(["run", "-i", glob, "-g", name, *(["--multirate"] if multirate else []), "--batch-size",
+                            str(FILE_BATCH), "-o", npy, "--stats", os.path.join(tmp, "stats.json")])[-1]
+            peak = torch.cuda.max_memory_allocated() / 1e6
+            got = np.load(npy, mmap_mode="r")
+            graph = cli._build_graph(name, RATE, cfg, multirate=multirate)
+            want = graph.chain(x0).cpu().numpy()
+            check(got.shape[0] == FILES and got.shape[1:] == want.shape[1:] and np.isfinite(got[:FILE_BATCH]).all(),
+                  f"run -g {label}: {got.shape} vs {want.shape}")
+            err = float(np.abs(got[:FILE_BATCH] - want).max())
+            check(err <= FILE_TOL, f"run -g {label}: the first batch vs the graph called directly max|d| {err}")
+            graph_ms = cuda_ms(lambda graph=graph: graph.chain(x0), 3, warmup=1)
+            row = {"audio_s_per_s": line["realtime_factor"], "graph_ms": graph_ms, "decode_ms": decode_ms,
+                   "peak_mb": peak, "pace": "decode" if decode_ms > graph_ms else "the card"}
+            extra = ""
+            if row["pace"] == "the card":  # where its device time goes
+                prof = profile(lambda graph=graph: graph.chain(x0))
+                row.update(busy_ms=prof["busy_ms"], idle=prof["idle_untraced"], launches=prof["launches"],
+                           top=[(k["name"][:60], round(k["share"], 4)) for k in prof["kernels"][:4]])
+                extra += (f"; one batch under the profiler: busy {prof['busy_ms']:.2f} ms, idle "
+                          f"{prof['idle_untraced']:.1%} untraced, {prof['launches']} device events, largest "
+                          + ", ".join(f"{n} {sh:.1%}" for n, sh in row["top"]))
+            if name == "cqtroundtrip" and multirate:
+                # the steady part of each tone file: the joint dual spans nd/2 samples each side
+                nd = cqt_mod._multirate_design(RATE, 256, 84, cqt_mod.FMIN_C1, 12, "hann", 1.0)["nd"]
+                n = int(SECONDS * RATE)
+                snr = _inband_snr_db(got[:, :n], decoded.samples[:, :n], RATE, *band, nd // 2)
+                check(snr.min() >= SNR_DB, f"run -g cqtroundtrip --multirate: {snr.min():.2f} dB worst file")
+                row["snr_db_worst"] = float(snr.min())
+                extra += (f"; round trip of each file over its steady part, inside the CQT's band, {snr.min():.2f} dB "
+                          f"worst (>= {SNR_DB})")
+            runs[label] = row
+            print(f"phase {32 if name.startswith('cqt') else 33} run -g {label} --batch-size {FILE_BATCH} ({card}): "
+                  f"{line['files']} files of {SECONDS:.0f} s at {RATE} Hz -> {got.shape}, the first batch exactly the "
+                  f"graph called directly (max|d| {err:.1e}); {line['realtime_factor']:.0f} audio-s/s; per batch host "
+                  f"decode {decode_ms:.2f} ms (readings, s: {json.dumps(decode_s)}), graph on the card {graph_ms:.2f} "
+                  f"ms (CUDA events): {row['pace']} sets the pace; peak device memory {peak:.0f} MB{extra}")
+            del got, want
+        out["runs"] = runs
+        del decoded, x0
+
+    # phase 33: the tempo of click tracks, the DP on the card against the
+    # CPU, and the streaming beat graph over 64 click tracks of 30 s
+    clicks = torch.from_numpy(_click_batch((90.0, 120.0, 150.0), 20 * 16000, 16000, SEED)).to(dev)
+    tg = chain(*onset_frontend(16000).nodes, Tempo(hop=256), input_rate=16000)
+    bpm = tg.chain(clicks).flatten().cpu().numpy()
+    check(np.abs(bpm - [90.0, 120.0, 150.0]).max() <= BPM_TOL, f"tempo of 90/120/150 BPM clicks: {bpm}")
+    bpms = np.random.default_rng(SEED + 33).uniform(70.0, 180.0, CQT_BATCH)
+    xc = torch.from_numpy(_click_batch(bpms, RHYTHM_CHUNKS * EFFECTS_CHUNK, 16000, SEED + 34)).to(dev)
+    front = onset_frontend(16000)
+    env = front.chain(xc)[..., 0]
+    mask, dp_bpm = rhythm.beat_track(env, 16000, 256)
+    env_cpu = env.cpu()
+    want_mask, want_bpm = rhythm.beat_track(env_cpu, 16000, 256)
+    clear = _dp_clear_from(env_cpu, 16000)
+    t_env = env.shape[-1]
+    left_out = sum(t_env if c is None else c for c in clear)
+    same = all(c is None or torch.equal(mask[b, c:].cpu(), want_mask[b, c:]) for b, c in enumerate(clear))
+    check(same, "beat_track on the card differs from the CPU where the DP's margins are clear")
+    bpm_same = all(c is None or float(dp_bpm[b]) == float(want_bpm[b]) for b, c in enumerate(clear))
+    check(bpm_same, "beat_track's tempo on the card differs from the CPU's")
+    dp_ms = cuda_ms(lambda: rhythm.beat_track(env, 16000, 256), 1, warmup=1)
+    dp_ops = aten_ops(lambda: rhythm.beat_track(env, 16000, 256))
+    # the streaming beat graph, streamed against offline at its latency
+    g = chain(Spectrogram(1024, 256, center=False, power=True), MelProject(n_mels=64, log=None),
+              OnsetStrength(n_bins=64), OnlineBeats(hop=256), input_rate=16000)
+    lat = g.stream_latency(EFFECTS_CHUNK)
+    streamed = g.scan_stream(xc, EFFECTS_CHUNK)
+    offline = g.chain(xc)
+    env_st = front.scan_stream(xc, EFFECTS_CHUNK)[:, front.stream_latency(EFFECTS_CHUNK):, 0]
+    n_al = streamed.shape[1] - lat
+    env_diff = float((env_st[:, :n_al] - env[:, :n_al]).abs().max())
+    plan = OnlineBeats(hop=256, sample_rate=16000)._plan()
+    until = np.minimum(_online_clear_until(env_cpu.numpy(), plan, env_diff), n_al)
+    beats_st = streamed[:, lat:, 0].cpu()
+    beats_off = offline[:, :n_al, 0].cpu()
+    same = all(torch.equal(beats_st[b, : until[b]], beats_off[b, : until[b]]) for b in range(CQT_BATCH))
+    check(same, "the streaming beat graph differs from offline where its decisions are clear")
+    online_left = int((n_al - until).sum())
+    n_beats = int(beats_off.sum())
+    st_ms = cuda_ms(lambda: g.scan_stream(xc, EFFECTS_CHUNK), 1, warmup=1)
+    carry = rhythm.online_beat_init(plan, (CQT_BATCH,), device=dev)
+    chunk_env = env[:, : EFFECTS_CHUNK // 256]
+    online_ops = aten_ops(lambda: rhythm.online_beat_step(plan, carry, chunk_env))
+    audio_c = CQT_BATCH * xc.shape[-1] / 16000
+    launches = {name: k.COUNT.launches for name, k in kernels.items()}
+    check(not any(launches.values()), f"a kernel launched on the CQT and rhythm paths: {launches}")
+    print(f"phase 33 rhythm ({card}): the tempo of 90/120/150 BPM click tracks {bpm.tolist()} (tol {BPM_TOL}); "
+          f"beat_track of {CQT_BATCH} click tracks of {xc.shape[-1] / 16000:.2f} s ({t_env} envelope frames) on the card "
+          f"equals the CPU's mask and tempo where the DP's margins are clear ({left_out} of {CQT_BATCH * t_env} "
+          f"frames left out, lanes out {sum(c is None for c in clear)}), {int(want_mask.sum())} beats; {dp_ms:.1f} ms, "
+          f"{dp_ops} aten ops = {dp_ops / t_env:.2f} a frame; the streaming beat graph (Spectrogram(1024, 256) -> "
+          f"MelProject(64, linear) -> OnsetStrength -> OnlineBeats) in {EFFECTS_CHUNK}-sample chunks equals offline "
+          f"at latency {lat} frames ({online_left} of {CQT_BATCH * n_al} frames left out where a decision is within "
+          f"its margin, envelopes differing {env_diff:.2e}), {n_beats} beats; {st_ms:.0f} ms = "
+          f"{audio_c / st_ms * 1e3:.0f} audio-s/s; OnlineBeats {online_ops} aten ops for {chunk_env.shape[-1]} "
+          f"frames = {online_ops / chunk_env.shape[-1]:.1f} a frame; kernel launches on phases 31-33 "
+          f"{json.dumps(launches)}")
+    out["rhythm"] = {"bpm": bpm.tolist(), "dp_left_out": left_out, "dp_ms": dp_ms,
+                     "dp_ops_per_frame": dp_ops / t_env, "online_left_out": online_left,
+                     "online_ops_per_frame": online_ops / chunk_env.shape[-1], "stream_ms": st_ms}
+    out["launches"] = launches
     return out
 
 
@@ -1796,6 +2224,7 @@ def main() -> int:
     dict_out = dictation(dev, card)
     lv = dict_out["launches_validate"]
     mastering(dev, card)
+    cqt_out = cqt_rhythm(dev, card)
 
     print(json.dumps({"kernels": [
         {
@@ -1803,27 +2232,28 @@ def main() -> int:
             "replaces": "audioflow_tpu/ops/pallas/melspec.py:137", "launches": launches,
             "launches_config5": launches5, **files, "launches_session": dict_out["launches_session"],
             "launches_dictation": dict_out["launches_dictation"], "launches_validate": lv["melspec"],
+            "launches_cqt_rhythm": cqt_out["launches"]["melspec"],
             "max_abs_err": kernel_err, "ms": k_ms, "ms_readings": k_t[1], "plain_ms": p_ms,
             "bound_ms": ms_bound, "bound_by": ms_by, "library_ms": None, "path": ms_path, "cufft_ms": c_ms,
         },
         {
             "name": "timestretch", "route": "cuda", "source": "audioflow_torch/csrc/timestretch.cu",
             "replaces": "audioflow_tpu/ops/pallas/timestretch.py:358", "launches": ts_launches,
-            "launches_validate": lv["timestretch"],
+            "launches_validate": lv["timestretch"], "launches_cqt_rhythm": cqt_out["launches"]["timestretch"],
             "max_abs_err": ts_err, "ms": ts_ms, "ms_readings": ts_t[1], "plain_ms": tp_ms,
             "bound_ms": ts_bound, "bound_by": ts_by, "library_ms": None, "path": ts_path, "cufft_ms": tc_ms,
         },
         {
             "name": "griffinlim", "route": "cuda", "source": "audioflow_torch/csrc/griffinlim.cu",
             "replaces": "audioflow_tpu/ops/pallas/griffinlim.py:216", "launches": gl_launches,
-            "launches_validate": lv["griffinlim"],
+            "launches_validate": lv["griffinlim"], "launches_cqt_rhythm": cqt_out["launches"]["griffinlim"],
             "max_abs_err": gl_err, "ms": gk_ms, "ms_readings": gk_t[1], "plain_ms": gp_ms,
             "bound_ms": gl_bound, "bound_by": gl_by, "library_ms": None, "path": gl_path, "cufft_ms": gc_ms,
         },
         {
             "name": "viterbi", "route": "cuda", "source": "audioflow_torch/csrc/viterbi.cu",
             "replaces": "audioflow_tpu/ops/pallas/viterbi.py:124", "launches": vit_launches,
-            "launches_validate": lv["viterbi"],
+            "launches_validate": lv["viterbi"], "launches_cqt_rhythm": cqt_out["launches"]["viterbi"],
             "max_abs_err": vit_err, "ms": vk_ms, "ms_readings": vk_t[1], "plain_ms": vp_ms,
             "bound_ms": vit_bound, "bound_by": vit_by, "library_ms": None, "cluster": vit_cluster,
         },

@@ -22,6 +22,7 @@ from audioflow_torch.cli import main as tmain
 from audioflow_torch.io import write_wav
 from test_torch_decompose import _gate_decisions_agree, _voice
 from logging_guard import restore_audioflow_logger  # noqa: F401  (autouse)
+from thread_limits import one_blas_thread_per_module  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMES = ("wall_seconds", "compile_seconds", "realtime_factor", "realtime_factor_per_chip")
@@ -91,10 +92,20 @@ def test_run_spec_from_jax_config5(tmp_path, capsys):
 
 
 def test_run_refusals(tmp_path, capsys):
+    """An unknown graph and ``--sharded`` are refused; every graph of the
+    JAX CLI builds (the four last ported ones run in
+    ``test_run_cqt_and_rhythm_graphs_match_jax_cli``)."""
+    from audioflow_torch.cli import _GRAPHS, _build_graph
+    from audioflow_torch.config import UserConfig
+
     inputs = _files(tmp_path, 16000, n=2, bad=False)
-    for graph in ("cqt", "cqtroundtrip", "onset", "beats"):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            tmain(["run", "-i", inputs, "-g", graph, "--device", "cpu"])
+    capsys.readouterr()
+    with pytest.raises(SystemExit):
+        tmain(["run", "-i", inputs, "-g", "nosuchgraph", "--device", "cpu"])
+    assert "invalid choice: 'nosuchgraph'" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match="unknown graph 'nosuchgraph'"):
+        _build_graph("nosuchgraph", 16000, UserConfig())
+    assert len(_GRAPHS) == 18 and all(_build_graph(g, 16000, UserConfig()).nodes for g in _GRAPHS)
     with pytest.raises(SystemExit, match="--sharded"):
         tmain(["run", "-i", inputs, "--sharded", "--device", "cpu"])
     if not torch.cuda.is_available():  # --device defaults to the card
@@ -247,3 +258,64 @@ def test_run_spec_examples_match_jax_cli(tmp_path, capsys, name):
     kind, tol = _SPECS[name]
     err = np.abs(tout - jout).max() / (np.abs(jout).max() if kind == "rel" else 1.0)
     assert err < tol, (name, err)
+
+
+def _cqt_rhythm_files(tmp_path, graph):
+    """Two 16 kHz files for the CQT and rhythm graphs. The CQT graphs get a
+    110 Hz tone (CQT bin 21, under the hybrid inverse's painless cliff, so
+    that its sinusoidal branch finds no peak: no decision of the hybrid
+    inverse is taken) and a 98 Hz tone, 1 s; the rhythm graphs click tracks
+    at 96 and 132 BPM, 6 s. Returns the glob and the rows as the CLI pads
+    them (to a multiple of 1024 samples)."""
+    from test_torch_rhythm import _click_audio
+
+    if graph in ("onset", "beats"):
+        x = _click_audio((96.0, 132.0), 6.0)
+    else:
+        t = np.arange(16000) / 16000
+        x = np.stack([0.5 * np.sin(2 * np.pi * 110.0 * t), 0.4 * np.sin(2 * np.pi * 98.0 * t)]).astype(np.float32)
+    d = tmp_path / "in"
+    d.mkdir()
+    for i, row in enumerate(x):
+        write_wav(d / f"c{i}.wav", row, 16000, bits=32)
+    return str(d / "*.wav"), np.pad(x, ((0, 0), (0, -x.shape[-1] % 1024)))
+
+
+# the CQT and rhythm graphs against the JAX CLI, of the output's peak: the
+# CQT magnitudes within test_torch_cqt.py's FWD_TOL, the inverses within its
+# INV_TOL, the onset envelope within test_torch_rhythm.py's GRAPH_TOL; the
+# beat masks exactly, after test_torch_rhythm.py's margin check
+_CQT_RHYTHM = {("cqt", False): 1e-5, ("cqtroundtrip", False): 2e-5, ("cqtroundtrip", True): 2e-5,
+               ("onset", False): 2e-5, ("beats", False): 0.0}
+
+
+@pytest.mark.parametrize("graph,multirate", sorted(_CQT_RHYTHM), ids=lambda v: str(v))
+def test_run_cqt_and_rhythm_graphs_match_jax_cli(tmp_path, capsys, graph, multirate):
+    import torch as _torch
+
+    from audioflow_torch import models as tmodels
+    from audioflow_torch import ops as tops
+
+    inputs, x = _cqt_rhythm_files(tmp_path, graph)
+    if graph == "beats":
+        from decision_margins import dp_margins_clear
+
+        dp_margins_clear(tmodels.onset_frontend(16000).chain(_torch.from_numpy(x))[..., 0])
+    if graph == "cqtroundtrip" and not multirate:
+        from decision_margins import hybrid_decisions_clear
+
+        margins = hybrid_decisions_clear(tops.cqt(_torch.from_numpy(x), 16000, output="complex"))
+        assert margins["components"] == 0  # no sinusoid estimate is synthesized
+    extra = ["--multirate"] if multirate else []
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    tl, tout = _run(tmain, capsys, ["-i", inputs, "-g", graph, *extra, "--device", "cpu"], tmp_path / "t" / "o.npy")
+    jl, jout = _run(jmain, capsys, ["-i", inputs, "-g", graph, *extra], tmp_path / "j" / "o.npy")
+    for k in set(jl) - set(TIMES) - {"output"}:
+        assert tl[k] == jl[k], k
+    assert tout.shape == jout.shape and np.isfinite(tout).all()
+    if graph == "beats":
+        assert np.array_equal(tout, jout) and tout.sum() > 10
+    else:
+        err = np.abs(tout - jout).max() / np.abs(jout).max()
+        assert err < _CQT_RHYTHM[graph, multirate], (graph, err)

@@ -152,10 +152,12 @@ def test_port_spec_equals_jax_spec_and_round_trips():
 
 
 def test_spec_with_unported_node_raises_naming_it():
-    spec = _spec_json(jmodels.cqt_frontend(16000))
+    from audioflow_tpu import graph as jgraph
+
+    spec = _spec_json(jgraph.chain(jgraph.OnlinePyin(), input_rate=16000))
     with pytest.raises(ConfigError) as e:
         tconfig.graph_from_spec(spec)
-    assert e.value.code.value == "CONFIG_VALIDATION_ERROR" and "'Cqt'" in e.value.message
+    assert e.value.code.value == "CONFIG_VALIDATION_ERROR" and "'OnlinePyin'" in e.value.message
     with pytest.raises(ConfigError) as e:
         tconfig.graph_from_spec({"nodes": [{"type": "Gain", "bogus": 1}]})
     assert e.value.code.value == "CONFIG_VALIDATION_ERROR" and "Gain" in e.value.message

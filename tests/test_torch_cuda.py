@@ -708,3 +708,69 @@ def test_integrated_loudness_on_card_matches_cpu(cuda_device):
     assert (got - integrated_loudness(x, 16000)).abs().max().item() <= 1e-4
     tone = torch.sin(2 * np.pi * 997.0 * torch.arange(5 * 48000, dtype=torch.float64) / 48000).float()
     assert abs(integrated_loudness(tone.to(cuda_device), 48000).item() + 3.0103) < 1e-2
+
+
+@pytest.mark.parametrize("impl", ["onedot", "split", "direct"])
+def test_cqt_on_card_matches_cpu(cuda_device, impl):
+    """The CQT's hop-block correlation (cuDNN, TF32 off) at the framework
+    default, 8 x 2 s at 16 kHz, within 1e-5 of the CPU's peak; the product
+    on the framed view beside it."""
+    from audioflow_torch.ops import cqt
+    from audioflow_torch.ops import cqt_mod
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy((0.3 * rng.standard_normal((8, 32000))).astype(np.float32))
+    got = cqt(x.to(cuda_device), 16000, output="complex", impl=impl).cpu()
+    want = cqt(x, 16000, output="complex", impl=impl)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    f0, _, bank = cqt_mod._design(16000, 256, 84, cqt_mod.FMIN_C1, 12, "hann", 1.0)
+    xp = torch.nn.functional.pad(x.to(cuda_device), (f0 // 2, f0 - f0 // 2))
+    n = (xp.shape[-1] - f0) // 256 + 1
+    conv = cqt_mod._framed_dot(xp, bank, 256, n, "conv")
+    unfold = cqt_mod._framed_dot(xp, bank, 256, n, "unfold")
+    assert (conv - unfold).abs().max().item() <= 1e-5 * unfold.abs().max().item()
+
+
+def test_icqt_on_card_matches_cpu(cuda_device):
+    """The hybrid inverse (the dual branch a cuDNN conv, the sinusoid
+    branch elementwise) on the CPU's coefficients, after the decision
+    margins of ``decision_margins.py``, and the multirate inverse; within
+    2e-5 of the CPU's peak (the conv's 12,144-term sums in another order)."""
+    from audioflow_torch.ops import cqt, cqt_frequencies, icqt
+    from decision_margins import hybrid_decisions_clear
+
+    f = cqt_frequencies(84)
+    n = np.arange(48000)
+    x = np.stack([np.sin(2 * np.pi * f[k] * n / 16000) for k in (1, 42, 63)]
+                 + [sum((0.5 / (i + 1)) * np.sin(2 * np.pi * 150.0 * (i + 1) * n / 16000) for i in range(12))])
+    x = torch.from_numpy(x.astype(np.float32))
+    c = cqt(x, 16000, output="complex")
+    hybrid_decisions_clear(c)
+    hybrid_decisions_clear(c.to(cuda_device))
+    got = icqt(c.to(cuda_device), 16000, length=48000).cpu()
+    want = icqt(c, 16000, length=48000)
+    assert (got - want).abs().max().item() <= 2e-5 * want.abs().max().item()
+    mr = cqt(x, 16000, multirate=True, output="complex")
+    mr_card = type(mr)([o.to(cuda_device) for o in mr.octaves], mr.meta)
+    got, want = icqt(mr_card).cpu(), icqt(mr)
+    assert (got - want).abs().max().item() <= 2e-5 * want.abs().max().item()
+
+
+def test_beat_track_on_card_matches_cpu(cuda_device):
+    """The DP's forward loop and backtrace on the card: the CPU's beat mask
+    and tempo on click envelopes whose decisions clear the margins of
+    ``decision_margins.py``."""
+    from audioflow_torch.ops import beat_track
+    from decision_margins import dp_margins_clear
+
+    rng = np.random.default_rng(8)
+    env = 0.05 * rng.random((3, 500))
+    for row, bpm in zip(env, (90.0, 120.0, 150.0)):
+        for k in np.arange(0.0, 500, 60.0 * 16000 / (256 * bpm)):
+            row[int(round(k))] += 1.0
+    env = torch.from_numpy(env.astype(np.float32))
+    dp_margins_clear(env)
+    dp_margins_clear(env.to(cuda_device))
+    mask, bpm = beat_track(env.to(cuda_device), 16000, 256)
+    want_mask, want_bpm = beat_track(env, 16000, 256)
+    assert mask.device.type == "cuda" and torch.equal(mask.cpu(), want_mask) and torch.equal(bpm.cpu(), want_bpm)

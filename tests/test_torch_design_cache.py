@@ -13,6 +13,7 @@ import test_torch_fft
 import test_torch_session
 
 from audioflow_torch.ops.kernels import melspec
+from thread_limits import one_blas_thread_per_module  # noqa: F401  (autouse)
 
 
 def test_bands_edit_then_design_cache_guard_in_one_process():

@@ -128,3 +128,50 @@ def test_graph_errors():
     with pytest.raises(AudioError):
         tgraph.BiquadChain(())
     assert set(tgraph.node_registry()) >= {"Resample", "Spectrogram", "MelProject", "LogMelSpec"}
+
+
+def _taps_graph(pkg):
+    """The reference's ``test_graph_taps`` graph (``tests/test_graph.py``)."""
+    return pkg.chain(
+        pkg.Resample(48000, 16000, "kaiser"), pkg.Stft(512, 128, center=False), pkg.Power(),
+        pkg.MelProject(n_mels=64), input_rate=48000,
+    )
+
+
+def test_graph_taps(rng):
+    """One call yields intermediate outputs, as the reference's taps do:
+    ``compile(taps=...)`` and ``chain(x, taps=...)`` return ``(final, {idx:
+    output})``, each within the log-mel slice's tolerance of the JAX
+    package's, and a tap out of range raises ``ConfigError``."""
+    x = rng.standard_normal(48000).astype(np.float32)
+    g, j = _taps_graph(tgraph), _taps_graph(jgraph)
+    final, tapped = g.compile(taps=(0, 1))(torch.from_numpy(x))
+    j_final, j_tapped = j.compile(taps=(0, 1))(jnp.asarray(x))
+    assert set(tapped) == set(j_tapped) == {0, 1}
+    assert tuple(tapped[0].shape) == (16000,) and tapped[1].dtype == torch.complex64
+    np.testing.assert_allclose(final.numpy(), g.compile()(torch.from_numpy(x)).numpy(), atol=1e-6)
+    np.testing.assert_allclose(final.numpy(), np.asarray(j_final), atol=5e-4)
+    np.testing.assert_allclose(tapped[0].numpy(), np.asarray(j_tapped[0]), atol=1e-5)
+    chained, chain_taps = g.chain(torch.from_numpy(x), taps=(2,))
+    assert torch.equal(chained, final) and set(chain_taps) == {2}
+    with pytest.raises(ConfigError, match="tap indices out of range"):
+        g.compile(taps=(99,))
+
+
+def test_compile_takes_the_reference_arguments(monkeypatch):
+    """``compile(donate, taps, chunked)`` in the reference's order: a
+    positional True is ``donate``, which is accepted and changes nothing,
+    so a short input is not chunked; ``chunked=True`` still forces the
+    chunked form, and a tapped compile is never chunked."""
+    calls = []
+    real = tgraph.Graph._chunked_chain
+    monkeypatch.setattr(tgraph.Graph, "_chunked_chain", lambda self, x: calls.append(1) or real(self, x))
+    g = log_mel_frontend(44100, 16000, 1024, 256, 128)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 2 * CHUNK)).astype(np.float32))
+    donated = g.compile(True)(x)
+    assert calls == []
+    assert torch.equal(donated, g.compile(False)(x)) and torch.equal(donated, g.chain(x))
+    g.compile(chunked=True)(x)
+    assert calls == [1]
+    final, _ = g.compile(donate=True, taps=(0,), chunked=True)(x)
+    assert calls == [1] and torch.equal(final, donated)

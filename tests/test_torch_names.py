@@ -1,0 +1,100 @@
+"""The port's public names against the JAX package's.
+
+``dir()`` of ``ops``, ``graph``, ``models`` and ``utils`` in both packages,
+taken in a fresh interpreter (a test process imports submodules, such as the
+JAX package's Pallas kernels, that would add names of their own). Every
+public name of the JAX package is in the port, except exactly the names of
+the modules that ROADMAP Queue A has not ported yet: A9's fourth group (the
+rest of ``pitch`` and ``sequence``, ``lpc`` and ``segment``) and A10
+(``augment``, ``trainable``). A later slice shrinks the list.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+NOT_PORTED = {
+    "ops": {
+        # A9, fourth group: online pYIN and piptrack, dense viterbi and dtw,
+        # lpc, segment
+        "OnlinePyinPlan", "make_online_pyin_plan", "online_pyin_init", "online_pyin_step", "pyin_online",
+        "piptrack", "viterbi", "dtw", "lpc", "lpc_from_autocorr", "lpc_mod", "lpc_residual_energy", "segment",
+        "cross_similarity", "novelty_curve", "recurrence_matrix", "segment_boundaries", "self_similarity",
+        # A10: augmentation
+        "augment", "freq_mask", "spec_augment", "time_mask",
+    },
+    "graph": {"OnlinePyin"},
+    "models": {"TrainableFrontend", "make_train_step", "trainable"},
+    "utils": set(),
+}
+
+
+def test_public_names_match_the_reference_but_the_unported():
+    code = (
+        "import importlib, json\n"
+        "out = {}\n"
+        "for sub in ('ops', 'graph', 'models', 'utils'):\n"
+        "    names = [sorted(n for n in dir(importlib.import_module(f'{p}.{sub}')) if not n.startswith('_'))\n"
+        "             for p in ('audioflow_tpu', 'audioflow_torch')]\n"
+        "    out[sub] = names\n"
+        "print(json.dumps(out))\n"
+    )
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    for sub, (jax_names, port_names) in names.items():
+        assert set(jax_names) - set(port_names) == NOT_PORTED[sub], sub
+
+
+def test_reexported_names_compute_the_reference():
+    """The names the port had under another path (ROADMAP C5): the
+    resampler's plan API equal to ``ops.resample`` within the slice's 1e-5,
+    the precision names reported back while every product stays fp32,
+    ``log_mel_fused`` within the log-mel slice's 5e-4 of the JAX package's,
+    and the padding utilities equal."""
+    import numpy as np
+    import torch
+
+    import jax.numpy as jnp
+
+    from audioflow_tpu import ops as jops
+    from audioflow_tpu import utils as jutils
+    from audioflow_torch import ops as tops
+    from audioflow_torch import utils as tutils
+
+    rng = np.random.default_rng(0)
+    x = (0.3 * rng.standard_normal((2, 16000))).astype(np.float32)
+    plan = tops.make_plan(44100, 16000)
+    assert isinstance(plan, tops.ResamplePlan)
+    np.testing.assert_allclose(tops.resample_apply(torch.from_numpy(x), plan).numpy(),
+                               tops.resample(torch.from_numpy(x), 44100, 16000).numpy(), atol=1e-5)
+    before = tops.get_default_matmul_precision()
+    try:
+        tops.set_default_matmul_precision("high")
+        assert tops.get_default_matmul_precision() == "high" and torch.backends.cuda.matmul.allow_tf32 is False
+    finally:
+        tops.set_default_matmul_precision(before)
+    try:
+        tops.set_default_matmul_precision("bf16")
+    except ValueError as e:
+        assert "unknown precision" in str(e)
+    else:
+        raise AssertionError("an unknown precision name was accepted")
+    assert tops.ACF_PRECISION_DEFAULT == jops.ACF_PRECISION_DEFAULT
+    fb = jops.mel_filterbank(513, 64, 16000)
+    for center, log_base in ((False, "ln"), (True, "db"), (False, None)):
+        got = tops.log_mel_fused(torch.from_numpy(x), fb, center=center, log_base=log_base).numpy()
+        want = np.asarray(jops.log_mel_fused(jnp.asarray(x), fb, center=center, log_base=log_base))
+        scale = 1.0 if log_base else np.abs(want).max()
+        assert got.shape == want.shape and np.abs(got - want).max() / scale < 5e-4, (center, log_base)
+    rows = [np.arange(n, dtype=np.float32) for n in (3, 7, 5)]
+    for got, want in zip(tutils.stack_padded(rows, 4), jutils.stack_padded(rows, 4)):
+        assert np.array_equal(got, want)
+    assert np.array_equal(tutils.pad_to(rows[0], 6, value=-1.0), jutils.pad_to(rows[0], 6, value=-1.0))

@@ -319,10 +319,13 @@ def _imports(path: Path):
 
 
 def test_port_imports_no_jax():
-    """No module of the port, not chip_smoke.py and not the loopback server
-    it drives, names JAX or the JAX package in an import; and importing every
-    module of the port in a fresh interpreter loads neither."""
-    files = [*sorted((ROOT / "audioflow_torch").rglob("*.py")), ROOT / "chip_smoke.py", ROOT / "tests" / "ws_loopback.py"]
+    """No module of the port (the CQT and rhythm families among them), not
+    chip_smoke.py, not the port's example and not the test helpers the card
+    tests import names JAX or the JAX package in an import; and importing
+    every module of the port in a fresh interpreter loads neither."""
+    files = [*sorted((ROOT / "audioflow_torch").rglob("*.py")), ROOT / "chip_smoke.py", ROOT / "tests" / "ws_loopback.py",
+             ROOT / "tests" / "decision_margins.py", ROOT / "examples" / "cqt_edit_torch.py"]
+    assert {"cqt.py", "rhythm.py"} <= {p.name for p in files}
     for path in files:
         bad = [m for m in _imports(path) if m.split(".")[0] in ("jax", "jaxlib", "audioflow_tpu")]
         assert not bad, (path, bad)

@@ -18,6 +18,7 @@ from audioflow_torch import graph as tg
 from audioflow_torch.convert import state_from_leaves, state_leaves, stream_state_from_jax, stream_state_to_numpy
 from audioflow_torch.models import log_mel_frontend as t_frontend
 from audioflow_torch.session import Result, SessionState, StreamSession
+from thread_limits import one_blas_thread_per_module  # noqa: F401  (autouse)
 
 LOGMEL_TOL = 5e-4
 
