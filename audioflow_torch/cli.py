@@ -1,6 +1,6 @@
 """audioflow CLI of the port — the framework's command surface on the card.
 
-Mirrors ``audioflow_tpu/cli.py`` for the subcommands ported so far:
+Mirrors ``audioflow_tpu/cli.py``:
 
   devices            device enumeration (the CUDA cards, or the CPU)
   info               version/platform info
@@ -10,15 +10,18 @@ Mirrors ``audioflow_tpu/cli.py`` for the subcommands ported so far:
   key                API-key storage (env or secrets file)
   egress             a file through the dictation path to a WebSocket ASR endpoint
   vad                VAD segments of a file
-  validate           numerics against float64 oracles, the JAX package's budgets
+  pitch              YIN / pYIN / streaming pYIN f0 track of a file
+  align              DTW alignment of two files over MFCC or log-mel frames
+  segments           structural section boundaries (Foote novelty)
   separate           blind NMF source separation -> one WAV per component
   loudness           BS.1770/R128 loudness meter (and optional normalizer)
+  validate           numerics against float64 oracles, the JAX package's budgets
+  inspect            cost counts of one call of a graph
 
-``run``, ``stream``, ``egress``, ``vad``, ``validate``, ``separate`` and
-``loudness`` compute on
-``--device`` ("cuda" unless given; without a card they fail with
-DEVICE_NOT_FOUND rather than carry on on the CPU). Their output is the JAX
-CLI's JSON.
+Every command that computes takes ``--device`` ("cuda" unless given;
+without a card it fails with DEVICE_NOT_FOUND rather than carry on on the
+CPU). The output is the JAX CLI's JSON; every JAX subcommand but ``bench``
+is here.
 
 Usage: python -m audioflow_torch.cli <command> [options]
 """
@@ -480,6 +483,122 @@ def cmd_validate(args) -> int:
     return 0 if report["pass"] else 1
 
 
+def cmd_pitch(args) -> int:
+    """f0 track of an audio file: frame times, f0 (Hz), voiced flag.
+
+    ``--method yin`` (default) thresholds the CMND aperiodicity; ``pyin``
+    runs the probabilistic tracker with its HMM decode (on the card, one
+    launch of the viterbi kernel); ``pyin-online`` the fixed-lag streaming
+    tracker (``ops.pyin_online``, the ``OnlinePyin`` node's algorithm),
+    ``--lag`` frames of decode delay. The online tracker frames without
+    centering, so its ``t`` adds half a frame to share the centered
+    methods' timeline, and the file's last ``lag`` frames are not emitted
+    (they need audio past the end)."""
+    from . import ops
+    from .utils import as_tensor
+
+    data, rate = _read_mono(args.input)
+    x = as_tensor(data, args.device)
+    if args.method == "pyin-online":
+        lag = args.lag
+        f0, vflag, vprob = ops.pyin_online(x, rate, args.fmin, args.fmax, args.frame_length, args.hop, lag)
+        # emission j decodes frame j - lag: report on the frame timeline
+        f0, vflag, vprob = f0[lag:], vflag[lag:], vprob[lag:]
+    elif args.method == "pyin":
+        f0, vflag, vprob = ops.pyin(x, rate, args.fmin, args.fmax, args.frame_length, args.hop)
+    if args.method in ("pyin", "pyin-online"):
+        f0, voiced = f0.cpu().numpy(), vflag.cpu().numpy()
+        ap = 1.0 - vprob.cpu().numpy()  # reported as an aperiodicity-like score
+    else:
+        f0, ap = ops.yin_voicing(x, rate, args.fmin, args.fmax, args.frame_length, args.hop)
+        f0, ap = f0.cpu().numpy(), ap.cpu().numpy()
+        voiced = ap < args.voiced_threshold
+    hop_s = args.hop / rate
+    t0 = args.frame_length / (2.0 * rate) if args.method == "pyin-online" else 0.0
+    track = [
+        {"t": round(t0 + i * hop_s, 4), "f0_hz": round(float(f), 2) if v else None, "aperiodicity": round(float(a), 3)}
+        for i, (f, a, v) in enumerate(zip(f0, ap, voiced))
+    ]
+    med = float(np.median(f0[voiced])) if voiced.size and voiced.any() else None
+    print(json.dumps({
+        "frames": len(track),
+        # an empty track (a file shorter than lag frames) prints 0.0, not nan
+        "voiced_fraction": round(float(voiced.mean()), 3) if voiced.size else 0.0,
+        "median_f0_hz": round(med, 2) if med else None,
+        "track": track,
+    }))
+    return 0
+
+
+def _analysis_features(data: np.ndarray, rate: int, n_fft: int, hop: int, device, feature: str = "mfcc"):
+    """13 MFCCs (or the 64-band log-mel) of a mono file ``[T, D]``, the
+    JAX CLI's features for ``align`` and ``segments``."""
+    from . import ops
+    from .utils import as_tensor
+
+    x = as_tensor(data, device)
+    fb = ops.mel_filterbank(n_fft // 2 + 1, 64, rate)
+    # the power of the power spectrogram, as the JAX CLI computes it
+    lm = ops.log_mel(ops.power(ops.spectrogram(x, n_fft, hop)), fb)
+    return ops.mfcc(lm, 13) if feature == "mfcc" else lm
+
+
+def cmd_align(args) -> int:
+    """DTW-align two audio files over MFCC (or log-mel) features: the
+    alignment cost and a time-to-time warp map of about 100 anchors."""
+    from . import ops
+
+    feats = []
+    for path in (args.a, args.b):
+        data, rate = _read_mono(path)
+        feats.append((_analysis_features(data, rate, args.n_fft, args.hop, args.device, args.feature), rate))
+    (fa, rate_a), (fb, rate_b) = feats
+    acc, path = ops.dtw(fa, fb, metric=args.metric)
+    cost = float(acc[-1, -1])
+    hop_a, hop_b = args.hop / rate_a, args.hop / rate_b
+    stride = max(1, len(path) // 100)
+    anchors = [{"t_a": round(float(i) * hop_a, 3), "t_b": round(float(j) * hop_b, 3)} for i, j in path[::stride]]
+    print(json.dumps({
+        "frames_a": int(fa.shape[0]),
+        "frames_b": int(fb.shape[0]),
+        "cost": round(cost, 3),
+        "cost_per_step": round(cost / len(path), 5),
+        "path_len": int(len(path)),
+        "anchors": anchors,
+    }))
+    return 0
+
+
+def cmd_segments(args) -> int:
+    """Structural section boundaries of an audio file: MFCC self-similarity
+    -> Foote novelty (summed-area checkerboard) -> peak-picked boundaries;
+    prints the boundary times and the novelty's peak."""
+    from . import ops
+
+    data, rate = _read_mono(args.input)
+    feats = _analysis_features(data, rate, args.n_fft, args.hop, args.device)
+    mask, nov = ops.segment_boundaries(feats, kernel_width=args.kernel, delta=args.delta)
+    mask, nov = mask.cpu().numpy(), nov.cpu().numpy()
+    hop_s = args.hop / rate
+    print(json.dumps({
+        "frames": int(mask.shape[0]),
+        "duration_s": round(data.shape[-1] / rate, 3),
+        "boundaries_s": [round(float(i) * hop_s, 3) for i in np.where(mask)[0]],
+        "novelty_peak": round(float(nov.max()), 5),
+    }))
+    return 0
+
+
+def cmd_inspect(args) -> int:
+    """Cost counts of one call of a graph (``Graph.inspect``)."""
+    g = _build_graph(args.graph, args.input_rate, _user_config(args))
+    shape = (args.batch, int(args.input_rate * args.seconds))
+    report = g.inspect(shape, device=args.device)
+    report.update({"graph": args.graph, "input_shape": list(shape)})
+    print(json.dumps(report))
+    return 0
+
+
 def cmd_separate(args) -> int:
     """Blind NMF source separation: one WAV per component. STFT -> NMF of
     the magnitude -> soft masks -> ISTFT (``ops.nmf_separate``); the
@@ -631,6 +750,44 @@ def main(argv: list[str] | None = None) -> int:
     val.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
     val.set_defaults(fn=cmd_validate)
 
+    pt = sub.add_parser("pitch", help="YIN/pYIN f0 track of an audio file")
+    pt.add_argument("-i", "--input", required=True)
+    pt.add_argument(
+        "--method", choices=("yin", "pyin", "pyin-online"), default="yin",
+        help="yin: CMND + aperiodicity threshold; pyin: probabilistic candidates + HMM Viterbi voicing/pitch "
+        "decode; pyin-online: the fixed-lag streaming tracker",
+    )
+    pt.add_argument("--fmin", type=float, default=65.0)
+    pt.add_argument("--fmax", type=float, default=2093.0)
+    pt.add_argument("--frame-length", type=int, default=2048)
+    pt.add_argument("--hop", type=int, default=256)
+    pt.add_argument("--voiced-threshold", type=float, default=0.3,
+                    help="aperiodicity (CMND depth) below this counts as voiced")
+    pt.add_argument("--lag", type=int, default=25,
+                    help="pyin-online only: fixed-lag decode delay in frames, the streaming tracker's "
+                    "latency/accuracy knob")
+    pt.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+    pt.set_defaults(fn=cmd_pitch)
+
+    al = sub.add_parser("align", help="DTW-align two audio files (MFCC/log-mel)")
+    al.add_argument("-a", required=True, help="first audio file")
+    al.add_argument("-b", required=True, help="second audio file")
+    al.add_argument("--feature", choices=("mfcc", "logmel"), default="mfcc")
+    al.add_argument("--metric", choices=("euclidean", "cosine"), default="cosine")
+    al.add_argument("--n-fft", type=int, default=1024)
+    al.add_argument("--hop", type=int, default=256)
+    al.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+    al.set_defaults(fn=cmd_align)
+
+    sg = sub.add_parser("segments", help="structural section boundaries (Foote novelty)")
+    sg.add_argument("-i", "--input", required=True)
+    sg.add_argument("--n-fft", type=int, default=2048)
+    sg.add_argument("--hop", type=int, default=512)
+    sg.add_argument("--kernel", type=int, default=32, help="checkerboard width (frames)")
+    sg.add_argument("--delta", type=float, default=0.05, help="novelty peak threshold")
+    sg.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+    sg.set_defaults(fn=cmd_segments)
+
     sp = sub.add_parser("separate", help="blind NMF source separation -> per-component wavs")
     sp.add_argument("-i", "--input", required=True)
     sp.add_argument("-o", "--output", default=None, help="output basename (default: input)")
@@ -650,6 +807,15 @@ def main(argv: list[str] | None = None) -> int:
     lo.add_argument("--out-dir", default=None, help="directory for normalized copies")
     lo.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
     lo.set_defaults(fn=cmd_loudness)
+
+    ins = sub.add_parser("inspect", help="cost counts of one call of a graph (flops/launches)")
+    ins.add_argument("--graph", "-g", default="logmel", choices=_GRAPHS)
+    ins.add_argument("--input-rate", type=int, default=44100)
+    ins.add_argument("--seconds", type=float, default=10.0)
+    ins.add_argument("--batch", type=int, default=1)
+    ins.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+    ins.add_argument("--config")
+    ins.set_defaults(fn=cmd_inspect)
 
     args = p.parse_args(argv)
     setup_logging(args.log_level)

@@ -186,6 +186,54 @@ class Graph:
         streamed = self.scan_stream(x, chunk)
         return streamed.narrow(axis, lat, n_out)
 
+    def inspect(self, input_shape: tuple, dtype=torch.float32, device=None) -> dict:
+        """Cost counts of one call of :meth:`chain` on ``device`` ("cuda"
+        unless given), under the JAX package's keys (there XLA's cost
+        analysis of the compiled program):
+
+        * ``flops``: what ``torch.utils.flop_counter.FlopCounterMode``
+          counts, the matmuls and convolutions (elementwise work and FFTs
+          are not counted);
+        * ``fusions``: the kernel launches, the CUDA launch calls that
+          ``torch.profiler`` records on the card, the aten ops
+          (``profiling.aten_ops``, views left out) on the CPU;
+        * ``collectives``: 0 (one device);
+        * ``bytes_accessed``, ``hlo_bytes``: -1.0, the JAX package's value
+          where a backend has no analysis.
+
+        The input is seeded noise of ``input_shape`` (a call needs data);
+        a first call builds what the graph's kernels need, and is not
+        counted.
+        """
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from ..profiling import aten_ops
+        from ..utils import resolve_device
+
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(0)
+        x = (0.1 * torch.randn(tuple(input_shape), generator=gen)).to(dtype=dtype, device=dev)
+        self.chain(x)
+        with FlopCounterMode(display=False) as counter:
+            self.chain(x)
+        if dev.type == "cuda":
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize(dev)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                self.chain(x)
+                torch.cuda.synchronize(dev)
+            launches = sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
+        else:
+            launches = aten_ops(lambda: self.chain(x))
+        return {
+            "flops": float(counter.get_total_flops()),
+            "bytes_accessed": -1.0,
+            "fusions": int(launches),
+            "collectives": 0,
+            "hlo_bytes": -1.0,
+        }
+
     # -------------------------------------------------------------- streaming
     @property
     def streamable(self) -> bool:

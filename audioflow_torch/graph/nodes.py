@@ -27,7 +27,7 @@ from ..ops import cqt_mod as cqt_ops
 from ..ops import decompose, dynamics, effects, features, fir, loudness, rhythm
 from ..ops import vad as _vad
 from ..ops.biquad import Biquad, iir_apply, make_iir_plan
-from ..ops.framing import overlap_add
+from ..ops.framing import frame, overlap_add
 from ..ops.griffinlim import griffin_lim
 from ..ops.kernels.melspec import mel_spectrogram
 from ..ops.mel import apply_mel, cached_filterbank, log_mel, mfcc
@@ -38,7 +38,7 @@ from ..ops.phase_vocoder import (
     pitch_shift,
     time_stretch,
 )
-from ..ops.pitch import pyin, yin_voicing
+from ..ops.pitch import make_online_pyin_plan, online_pyin_init, online_pyin_step, pyin, pyin_online, yin_voicing
 from ..ops.quantize import quantize_i16, quantize_i16_round
 from ..ops.resample import (
     make_stream_plan,
@@ -1759,6 +1759,82 @@ class OnlineBeats(Node):
             self._plan(), carry, chunk[..., 0], 0 if first_index is None else first_index
         )
         return carry, torch.stack([beat.to(chunk.dtype), bpm.to(chunk.dtype)], dim=-1)
+
+
+@register_node
+@dataclass(frozen=True)
+class OnlinePyin(Node):
+    """Streaming pYIN: samples -> per-frame ``[f0_hz, voiced_flag,
+    voiced_prob]`` ``[..., F, 3]`` by fixed-lag Viterbi smoothing
+    (``ops/pitch.py::online_pyin_step``), the causal counterpart of
+    :class:`Pyin`. The carry is the hop-aligned frame overlap and the
+    tracker's state; the latency is the overlap's frames plus ``lag``, and
+    streamed equals offline at that whole-unit shift."""
+
+    fmin: float = 65.0
+    fmax: float = 2093.0
+    frame_length: int = 2048
+    hop: int = 256
+    lag: int = 25
+    resolution: float = 0.1
+    n_thresholds: int = 100
+    sample_rate: int | None = None
+    impl: str = "auto"
+    precision: str | None = None
+
+    domain_out = "frames"
+
+    def _plan(self):
+        if self.sample_rate is None:
+            raise AudioError("OnlinePyin.sample_rate unresolved; set input_rate on the graph")
+        return make_online_pyin_plan(
+            self.sample_rate, self.fmin, self.fmax, self.frame_length, self.hop, self.lag,
+            n_thresholds=self.n_thresholds, resolution=self.resolution, impl=self.impl, precision=self.precision,
+        )
+
+    @staticmethod
+    def _stack(out, dtype):
+        f0, vf, vp = out
+        return torch.stack([f0.to(dtype), vf.to(dtype), vp.to(dtype)], dim=-1)
+
+    def apply(self, x):
+        plan = self._plan()
+        out = self._stack(pyin_online(
+            x, plan.sample_rate, self.fmin, self.fmax, self.frame_length, self.hop, self.lag,
+            n_thresholds=self.n_thresholds, resolution=self.resolution, impl=self.impl, precision=self.precision,
+        ), x.dtype)
+        # realign: the emission at frame t decodes frame t - lag, and the
+        # offline form reports at the decoded frame; the last `lag` frames
+        # repeat the final decode (the streamed signal ends before them)
+        tail = out[..., -1:, :].expand(*out.shape[:-2], self.lag, out.shape[-1])
+        return torch.cat([out[..., self.lag :, :], tail], dim=-2)
+
+    def chunk_multiple(self):
+        return self.hop
+
+    def out_len(self, n_in):
+        return n_in // self.hop
+
+    @property
+    def _carry_len(self) -> int:
+        return (-(-self.frame_length // self.hop) - 1) * self.hop
+
+    def latency(self, n_in):
+        return self._carry_len // self.hop + self.lag
+
+    def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        return {
+            "buf": torch.zeros((*lead_shape, self._carry_len), dtype=dtype, device=device),
+            "state": online_pyin_init(self._plan(), lead_shape, dtype, device),
+        }
+
+    def step(self, carry, chunk):
+        buf = torch.cat([carry["buf"], chunk], dim=-1)
+        state, out = online_pyin_step(
+            self._plan(), carry["state"], frame(buf, self.frame_length, self.hop),
+            skip_first=self._carry_len // self.hop,
+        )
+        return {"buf": buf[..., buf.shape[-1] - self._carry_len :], "state": state}, self._stack(out, chunk.dtype)
 
 
 @register_node

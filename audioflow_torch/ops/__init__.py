@@ -1,7 +1,8 @@
 """Signal ops of the port: plain torch on tensors, fp32 matmuls."""
 
-from . import biquad, decompose, dynamics, effects, features, fir, loudness, quantize, rhythm, ring, vad
+from . import biquad, decompose, dynamics, effects, features, fir, loudness, quantize, rhythm, ring, segment, vad
 from . import cqt as cqt_mod
+from . import lpc as lpc_mod
 from ._mm import get_default_matmul_precision, set_default_matmul_precision
 from .biquad import (
     Biquad,
@@ -77,6 +78,7 @@ from .features import (
 from .fir import convolve, fir_apply, fir_design
 from .framing import frame, num_frames, overlap_add
 from .griffinlim import griffin_lim
+from .lpc import lpc, lpc_from_autocorr, lpc_residual_energy
 from .loudness import (
     integrated_loudness,
     k_weight,
@@ -103,7 +105,21 @@ from .mel import (
 )
 from .phase_vocoder import phase_vocoder, pitch_shift, time_stretch
 from .quantize import dequantize_i16, quantize_i16, quantize_i16_round
-from .pitch import ACF_PRECISION_DEFAULT, cmnd_frames, pyin, pyin_frames, yin, yin_frames, yin_voicing
+from .pitch import (
+    ACF_PRECISION_DEFAULT,
+    OnlinePyinPlan,
+    cmnd_frames,
+    make_online_pyin_plan,
+    online_pyin_init,
+    online_pyin_step,
+    piptrack,
+    pyin,
+    pyin_frames,
+    pyin_online,
+    yin,
+    yin_frames,
+    yin_voicing,
+)
 from .resample import ResamplePlan, make_plan, resample, resample_apply
 from .rhythm import (
     autocorrelate,
@@ -119,7 +135,8 @@ from .rhythm import (
     tempogram,
 )
 from .ring import Ring, ring_available, ring_clear, ring_free, ring_init, ring_read, ring_write
-from .sequence import max_plus_band, max_plus_band_argmax, transition_local
+from .segment import cross_similarity, novelty_curve, recurrence_matrix, segment_boundaries, self_similarity
+from .sequence import dtw, max_plus_band, max_plus_band_argmax, transition_local, viterbi
 from .stft import istft, magnitude, power, spectrogram, stft
 from .vad import VAD_LEVELS, VadCarry, VadConfig, is_speaking, vad_init, vad_scan, vad_step
 from .windows import get_window
@@ -151,4 +168,8 @@ __all__ = [
     "get_default_matmul_precision", "icqt", "icqt_max_hop", "icqt_multirate", "log_mel_fused", "make_online_beat_plan",
     "make_plan", "multirate_hops", "online_beat_init", "online_beat_step", "online_beat_track", "onset_strength",
     "peak_pick", "resample_apply", "rhythm", "set_default_matmul_precision", "tempo", "tempo_frequencies", "tempogram",
+    # sequence decoding, LPC, structure and the streaming and spectral-peak pitch trackers
+    "OnlinePyinPlan", "cross_similarity", "dtw", "lpc", "lpc_from_autocorr", "lpc_mod", "lpc_residual_energy",
+    "make_online_pyin_plan", "novelty_curve", "online_pyin_init", "online_pyin_step", "piptrack", "pyin_online",
+    "recurrence_matrix", "segment", "segment_boundaries", "self_similarity", "viterbi",
 ]

@@ -21,10 +21,19 @@ torch with width-1 gathers.
 Host designs (DFT correlation banks, beta masses, the histogram split, the
 bin centres, the HMM constants) are float64 numpy copied from the JAX
 package, bit for bit.
+
+The streaming tracker (:func:`online_pyin_step`, fixed-lag Viterbi
+smoothing) runs the same per-frame forward step as the offline plain scan,
+a Python loop over frames. Its frame clock ``seen`` is a host int, as the
+ring's cursors are, so warm-up gating is a host branch; every frame still
+emits the decode JAX emits. The lag walk is ``lag`` width-1 gathers (the
+JAX package's one-hot masked reduces are a TPU lowering choice; they read
+the same integers). :func:`piptrack` is the spectral-peak tracker.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
@@ -210,14 +219,18 @@ def cmnd_frames(
         raise ValueError(f"win {w} + max_lag {t_max} needs frame_length >= {w + t_max}, got {l}")
     frames = frames[..., : w + t_max]  # samples beyond W + max_lag never used
     acf = _acf_matmul(frames, w, t_max, precision) if impl == "matmul" else _acf_fft(frames, w, t_max)
-    cs = torch.cumsum(frames * frames, dim=-1)
+    # both cumsums accumulate in float64 and round each entry once, as
+    # torch's CPU cumsum does for float32: the card's fp32 scan sums in an
+    # order that depends on the batch's shape, which the streaming nodes'
+    # chunked frames would see as a difference from offline
+    cs = torch.cumsum(frames * frames, dim=-1, dtype=torch.float64).to(frames.dtype)
     cs = torch.cat([torch.zeros_like(cs[..., :1]), cs], dim=-1)  # cs[k] = sum of first k squares
     e0 = cs[..., w : w + 1]
     # e(tau) = sum_{j=tau}^{tau+w-1} x_j^2, tau = 0..t_max
     e_tau = cs[..., w : w + t_max + 1] - cs[..., 0 : t_max + 1]
     d = torch.clamp_min(e0 + e_tau - 2.0 * acf, 0.0)
     # cumulative mean normalization: d'(tau) = d(tau) * tau / sum_{1..tau} d
-    csd = torch.cumsum(d[..., 1:], dim=-1)
+    csd = torch.cumsum(d[..., 1:], dim=-1, dtype=torch.float64).to(d.dtype)
     tau = torch.arange(1, t_max + 1, dtype=frames.dtype, device=frames.device)
     dn = torch.where(csd > 0, d[..., 1:] * tau / torch.clamp_min(csd, 1e-30), torch.ones_like(csd))
     return torch.cat([torch.ones_like(d[..., :1]), dn], dim=-1)
@@ -458,7 +471,10 @@ def _pyin_observations(
     gmin_hot = (lags == gmin[..., None]) & has_any[..., None]
     prob = prob + gmin_hot * (no_trough_prob * nt_mass)[..., None]
 
-    voiced_prob = torch.clamp(prob.sum(dim=-1), 0.0, 1.0)
+    # summed in float64 and rounded once: on the card an fp32 sum over a
+    # 249-lag row splits by the row's address alignment, so a frame's sum
+    # would depend on its position in the batch (chunked against offline)
+    voiced_prob = torch.clamp(prob.sum(dim=-1, dtype=torch.float64).to(dtype), 0.0, 1.0)
 
     # --- candidate probabilities -> pitch-bin observations ---
     bins = torch.clamp(
@@ -617,3 +633,233 @@ def pyin(
     ``center=True`` reflect-pads so frame i is centred on sample i*hop."""
     fr = _framed(x, frame_length, hop, center, device)
     return pyin_frames(fr, sample_rate, fmin, fmax, hop=hop, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Streaming pYIN: fixed-lag Viterbi smoothing. At every consumed frame t the
+# decode backtracks ``lag`` steps from the current best state and emits the
+# decision for frame t - lag. State: the pair of max-plus messages, a
+# lag-deep ring of prev-state maps and lag+1-deep rings of the frame-local
+# candidate tables the f0 refinement needs (newest at index 0, as in the
+# JAX package). Streamed equals the offline run of the same algorithm.
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class OnlinePyinPlan:
+    """Static configuration of the fixed-lag streaming pYIN tracker."""
+
+    sample_rate: float
+    fmin: float
+    fmax: float
+    frame_length: int
+    hop: int
+    lag: int
+    n_thresholds: int = 100
+    beta_parameters: tuple = (2.0, 18.0)
+    boltzmann_parameter: float = 2.0
+    resolution: float = 0.1
+    switch_prob: float = 0.01
+    no_trough_prob: float = 0.01
+    max_transition_rate: float = 35.92
+    impl: str = "auto"
+    precision: str | None = None
+
+    @property
+    def nbps(self) -> int:
+        return _pyin_bins(self.resolution, self.fmin, self.fmax)[0]
+
+    @property
+    def n_bins(self) -> int:
+        return _pyin_bins(self.resolution, self.fmin, self.fmax)[1]
+
+    @property
+    def t_max(self) -> int:
+        w = self.frame_length // 2
+        tau_hi = min(int(np.ceil(self.sample_rate / self.fmin)), w - 1)
+        return min(tau_hi + 1, w)
+
+
+def make_online_pyin_plan(
+    sample_rate: float,
+    fmin: float = 65.0,
+    fmax: float = 2093.0,
+    frame_length: int = 2048,
+    hop: int = 256,
+    lag: int = 25,
+    **kwargs,
+) -> OnlinePyinPlan:
+    """Validated :class:`OnlinePyinPlan`; ``lag`` is the decode delay in
+    frames (latency = lag * hop samples on top of the framing overlap)."""
+    if lag < 1:
+        raise ValueError(f"lag must be >= 1 frame, got {lag}")
+    plan = OnlinePyinPlan(sample_rate, fmin, fmax, int(frame_length), int(hop), int(lag), **kwargs)
+    if not 0.0 < plan.resolution <= 12.0:
+        raise ValueError(f"resolution (semitones/bin) must be in (0, 12], got {plan.resolution}")
+    if not 0.0 < plan.switch_prob < 1.0:
+        raise ValueError(f"switch_prob must be in (0, 1), got {plan.switch_prob}")
+    return plan
+
+
+def online_pyin_init(plan: OnlinePyinPlan, lead_shape=(), dtype=torch.float32, device=None) -> dict:
+    """Zero streaming state: uniform max-plus messages (re-seeded at the
+    first consumed frame), empty prev-state and candidate rings, and the
+    frame clock ``seen`` (a host int). The prev-state ring holds int64
+    state indices, what ``torch.gather`` takes (int32 in the JAX package)."""
+    n, t1, lag = plan.n_bins, plan.t_max + 1, plan.lag
+    return {
+        "dv": torch.zeros((*lead_shape, n), dtype=dtype, device=device),
+        "du": torch.zeros((*lead_shape, n), dtype=dtype, device=device),
+        "prev": torch.zeros((*lead_shape, lag, 2 * n), dtype=torch.int64, device=device),
+        "score": torch.full((*lead_shape, lag + 1, t1), -1.0, dtype=dtype, device=device),
+        "f0r": torch.zeros((*lead_shape, lag + 1, t1), dtype=dtype, device=device),
+        "bins": torch.zeros((*lead_shape, lag + 1, t1), dtype=torch.int32, device=device),
+        "vp": torch.zeros((*lead_shape, lag + 1), dtype=dtype, device=device),
+        "seen": 0,
+    }
+
+
+def _push(ring: torch.Tensor, new: torch.Tensor, axis: int) -> torch.Tensor:
+    """``new`` in front of ``ring`` along ``axis`` (-1 or -2), the oldest
+    entry dropped."""
+    return torch.cat([new.unsqueeze(axis), ring.narrow(axis, 0, ring.shape[axis] - 1)], dim=axis)
+
+
+def online_pyin_step(
+    plan: OnlinePyinPlan,
+    state: dict,
+    frames: torch.Tensor,
+    skip_first: int = 0,
+) -> tuple[dict, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Consume frames ``[..., F, L]`` -> ``(state, (f0, voiced_flag,
+    voiced_prob))`` each ``[..., F]``.
+
+    The emission at frame index j is the fixed-lag decode of consumed frame
+    ``j - plan.lag``. ``skip_first`` ignores the first ``skip_first`` frames
+    the state ever sees (a streaming node's zero-prehistory framing tail),
+    tracked across chunks by the state's frame clock, so the caller passes a
+    constant. Callers discard the first ``skip_first + lag`` emissions: they
+    decode skipped or not-yet-seen frames (the ``OnlinePyin`` node does so
+    through its declared latency). They are computed all the same, from the
+    state as the JAX package computes them, so every emission equals its.
+    """
+    dtype, dev = frames.dtype, frames.device
+    lag, n_bins = plan.lag, plan.n_bins
+    obs_v, voiced_prob, trough, prob, f0_lag, bins, n_bins_o, nbps = _pyin_observations(
+        frames, plan.sample_rate, plan.fmin, plan.fmax, n_thresholds=plan.n_thresholds,
+        beta_parameters=plan.beta_parameters, boltzmann_parameter=plan.boltzmann_parameter,
+        resolution=plan.resolution, no_trough_prob=plan.no_trough_prob, impl=plan.impl,
+        precision=plan.precision,
+    )
+    assert n_bins_o == n_bins, (n_bins_o, n_bins)
+    log_obs_v, log_obs_u = _pyin_log_obs(obs_v, voiced_prob, n_bins)
+    half, log_kernel, log_stay, log_switch = _pyin_hmm_consts(
+        plan.sample_rate, plan.hop, nbps, plan.max_transition_rate, plan.switch_prob, dev
+    )
+    centers = _pitch_bin_centers(plan.fmin, n_bins, nbps, dev)
+    log_init = torch.tensor(np.float32(-np.log(2 * n_bins)), device=dev)
+    score = torch.where(trough, prob, -1.0)
+    grid = torch.arange(n_bins, dtype=torch.int64, device=dev)
+
+    c = dict(state)
+    f0s, vfs, vps = [], [], []
+    for t in range(frames.shape[-2]):
+        lv, lu = log_obs_v[..., t, :], log_obs_u[..., t, :]
+        live = c["seen"] >= skip_first
+        # the forward max-plus step; the uniform-init form at the first
+        # consumed frame is the offline tracker's delta_0
+        bv, av = max_plus_band_argmax(c["dv"], log_kernel)
+        bu, au = max_plus_band_argmax(c["du"], log_kernel)
+        new_v, new_u, off_v, pick_v, off_u, pick_u = _viterbi.merge_tracks(
+            bv, av, bu, au, lv, lu, log_stay, log_switch
+        )
+        prev_v = torch.clamp(grid + off_v - half, 0, n_bins - 1) + n_bins * pick_v
+        prev_u = torch.clamp(grid + off_u - half, 0, n_bins - 1) + n_bins * pick_u
+        if c["seen"] == skip_first:
+            dv, du = log_init + lv, log_init + lu
+        else:
+            dv, du = new_v, new_u
+        # rings, newest at index 0 (the map pushed at the first consumed
+        # frame is never walked: valid emissions stop at frame >= 1)
+        new_c = {
+            "dv": dv, "du": du,
+            "prev": _push(c["prev"], torch.cat([prev_v, prev_u], dim=-1), -2),
+            "score": _push(c["score"], score[..., t, :], -2),
+            "f0r": _push(c["f0r"], f0_lag[..., t, :], -2),
+            "bins": _push(c["bins"], bins[..., t, :], -2),
+            "vp": _push(c["vp"], voiced_prob[..., t], -1),
+        }
+        # fixed-lag decode: the first maximum now, walked `lag` maps back
+        s = torch.argmax(torch.cat([dv, du], dim=-1), dim=-1, keepdim=True)
+        for k in range(lag):
+            s = torch.gather(new_c["prev"][..., k, :], -1, s)
+        unvoiced = s[..., 0] >= n_bins
+        b = s[..., 0] - n_bins * unvoiced
+        sc_e = new_c["score"][..., lag, :]
+        cand = torch.where((new_c["bins"][..., lag, :] == b[..., None]) & (sc_e > 0.0), sc_e, -1.0)
+        mx, hit = cand.max(dim=-1)  # the first maximum, as the JAX package's cumsum rule
+        f0_cand = torch.gather(new_c["f0r"][..., lag, :], -1, hit[..., None])[..., 0]
+        f0s.append(torch.where(mx > 0.0, f0_cand, torch.take(centers, b)))
+        vfs.append(~unvoiced)
+        vps.append(new_c["vp"][..., lag])
+        if live:
+            c.update(new_c)
+        c["seen"] += 1
+    return c, (torch.stack(f0s, dim=-1), torch.stack(vfs, dim=-1), torch.stack(vps, dim=-1))
+
+
+def pyin_online(
+    x,
+    sample_rate: float,
+    fmin: float = 65.0,
+    fmax: float = 2093.0,
+    frame_length: int = 2048,
+    hop: int = 256,
+    lag: int = 25,
+    device: torch.device | str | None = None,
+    **kwargs,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fixed-lag streaming pYIN over a whole signal ``[..., T]`` -> ``(f0,
+    voiced_flag, voiced_prob)`` each ``[..., F]`` on the emission timeline:
+    index j decodes frame j - ``lag`` (the first ``lag`` outputs are
+    warm-up). The offline run of exactly what the ``OnlinePyin`` node
+    streams (center=False framing, zero initial state). ``x`` is a tensor,
+    or numpy that goes to ``device`` ("cuda" unless given)."""
+    plan = make_online_pyin_plan(sample_rate, fmin, fmax, frame_length, hop, lag, **kwargs)
+    fr = frame(as_tensor(x, device), frame_length, hop)
+    state = online_pyin_init(plan, fr.shape[:-2], fr.dtype, fr.device)
+    return online_pyin_step(plan, state, fr, skip_first=0)[1]
+
+
+def piptrack(
+    spec_mag,
+    sample_rate: float,
+    n_fft: int,
+    fmin: float = 150.0,
+    fmax: float = 4000.0,
+    threshold: float = 0.1,
+    device: torch.device | str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Spectral-peak pitch candidates (the parabolic-interpolation
+    'piptrack' convention) from a magnitude spectrogram ``[..., T, bins]``.
+
+    A bin is a candidate iff it is a local max across frequency, within
+    [fmin, fmax] (a mask designed in float64 on the host), and at least
+    ``threshold * frame_max``. Returns ``(pitches, mags)`` the shape of the
+    input: zero except at candidate bins, where ``pitches`` holds the
+    parabolic-refined frequency in Hz and ``mags`` the interpolated
+    magnitude. ``spec_mag`` is a tensor, or numpy that goes to ``device``.
+    """
+    s = as_tensor(spec_mag, device)
+    bins = s.shape[-1]
+    freqs = np.arange(bins) * sample_rate / n_fft
+    prev = torch.cat([s[..., :1], s[..., :-1]], dim=-1)
+    nxt = torch.cat([s[..., 1:], s[..., -1:]], dim=-1)
+    shift = _parabolic_refine(prev, s, nxt)
+    in_band = torch.from_numpy((freqs >= fmin) & (freqs <= fmax)).to(s.device)
+    frame_max = s.amax(dim=-1, keepdim=True)
+    peak = (s > prev) & (s >= nxt) & in_band & (s >= threshold * frame_max)
+    bin_idx = torch.arange(bins, dtype=s.dtype, device=s.device)
+    pitches = torch.where(peak, (bin_idx + shift) * (sample_rate / n_fft), 0.0)
+    mags = torch.where(peak, s - 0.25 * (prev - nxt) * shift, 0.0)
+    return pitches, mags

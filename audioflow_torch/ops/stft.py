@@ -155,6 +155,11 @@ def magnitude(spec: torch.Tensor) -> torch.Tensor:
 
 
 def power(spec: torch.Tensor) -> torch.Tensor:
+    """``|spec|^2``; a real ``spec`` is squared, as ``jnp.imag`` of a real
+    array is zero (the JAX CLI's ``align`` and ``segments`` take the power
+    of a power spectrogram)."""
+    if not spec.is_complex():
+        return spec**2
     return spec.real**2 + spec.imag**2
 
 

@@ -186,12 +186,28 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
     (``Spectrogram -> MelProject -> OnsetStrength -> OnlineBeats``) over the
     same tracks in 16,384-sample chunks equal to offline at its latency
     where its decisions are clear; aten ops per envelope frame of
-    ``beat_track`` and ``OnlineBeats``; no kernel launched on phases 31-33.
+    ``beat_track`` and ``OnlineBeats``; no kernel launched on phases 31-33;
+34. online pYIN (``pyin_online`` at ``make_online_pyin_plan``'s defaults:
+    602 bins, lag 25) on the pyin cell's 64 x 10 s: the ``OnlinePyin`` node
+    streamed in 16,384-sample chunks equal to offline at its latency; the
+    card against the CPU on 8 lanes, equal wherever the decisions that reach
+    an emission agree (each place they part a near tie of the messages,
+    ``tests/decision_margins.py``); against the offline Viterbi (the kernel)
+    outside the lag window on a steady 220 Hz tone; ms a frame, aten ops a
+    frame, audio-s/s and the card's idle share; no kernel launched;
+35. ``audioflow pitch --method yin|pyin|pyin-online``, ``align`` (two 30 s
+    files at 16 kHz), ``segments`` (180 s at 44.1 kHz, T = 15,504 frames)
+    and ``inspect -g logmel`` in the process, each against ``--device
+    cpu``; ``pitch --method pyin`` launches viterbi exactly once, counted
+    from 0; the dense Viterbi and LPC at the JAX tests' shapes; DTW and
+    ``segments`` timed with their peak device memory, the novelty's
+    summed-area table against the CPU within its fp32 bound.
 
 Every device time (phases 3, 6, 9, 12) is the median of three readings
 under torch.profiler, printed with the readings and the device events per
 call; a kernel's reading sums the mean time per launch of each kernel it
-runs once a call, which events the profiler drops or repeats do not bias. Then one JSON line of per-kernel numbers (with ``path`` and ``cufft_ms``
+runs once a call, which events the profiler drops or repeats do not bias. Then a JSON line of the seconds of
+phases 34 and 35 and of the whole run, one JSON line of per-kernel numbers (with ``path`` and ``cufft_ms``
 for the three kernels built on the shared-memory FFT, ``cluster`` for
 viterbi), and last
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a card, or
@@ -337,6 +353,23 @@ SNR_DB = 30.0
 # track within one lag's step (tests/test_torch_rhythm.py)
 RHYTHM_CHUNKS = 30
 BPM_TOL = 1.5
+# online pYIN (phase 34), card vs CPU where the decisions agree: f0 from the
+# same candidate's refined lag (cuFFT against pocketfft), relative; the
+# voiced probability, frame-local sums
+ONLINE_F0_RTOL = 1e-5
+ONLINE_VP_TOL = 1e-5
+# the pitch CLI (phase 35) against --device cpu: the share of frames with
+# equal voicing (tests/test_torch_pitch.py's bound between the packages),
+# f0 within one rounding step of 0.01 Hz plus this relative part
+PITCH_VOICING = 0.99
+PITCH_F0_RTOL = 1e-4
+# DTW's accumulated cost card vs CPU on the same features, of the final
+# cost: the cost's products round differently (tests/test_torch_sequence.py)
+DTW_TOL = 1e-5
+# segments: a 180 s music-like file at 44.1 kHz (n_fft 2048, hop 512); the
+# peak picker's sliding mean, an fp32 cumsum of the novelty on each device
+SEGMENT_SECONDS = 180.0
+SEG_MEAN_SLACK = 1e-4
 # decision margins (tests/decision_margins.py): the beat DP's scores, the
 # causal tracker's envelope comparisons, weighted autocorrelations (relative)
 DP_MARGIN = 1e-3
@@ -1708,7 +1741,344 @@ def mastering(dev: torch.device, card: str) -> dict:
     return out
 
 
+def _music_like(seconds: float, rate: int, seed: int) -> np.ndarray:
+    """A music-like file for ``segments``: sections of 10-25 s, each a chord
+    of three harmonic tones with a tremolo, over noise."""
+    rng = np.random.default_rng(seed)
+    out, n = [], int(seconds * rate)
+    while sum(len(p) for p in out) < n:
+        t = np.arange(int(rng.uniform(10.0, 25.0) * rate)) / rate
+        f0 = rng.uniform(110.0, 440.0)
+        env = 0.8 + 0.2 * np.sin(2 * np.pi * rng.uniform(2.0, 6.0) * t)
+        sec = sum(np.sin(2 * np.pi * f0 * r * t) / (1 + k) for k, r in enumerate((1.0, 1.25, 1.5)))
+        out.append(0.2 * env * sec + 0.01 * rng.standard_normal(t.size))
+    return np.concatenate(out)[:n].astype(np.float32)
+
+
+def _novelty_f64(s: torch.Tensor, l: int) -> torch.Tensor:
+    """Foote novelty of ``s [T, T]`` from a float64 summed-area table: the
+    reference's formula, without the fp32 table's rounding."""
+    t = s.shape[-1]
+    sat = torch.zeros((t + 1, t + 1), dtype=torch.float64, device=s.device)
+    sat[1:, 1:] = s.double().cumsum(-1).cumsum(-2)
+    ts = torch.arange(t, device=s.device)
+    lo, hi = (ts - l).clamp_min(0), (ts + l).clamp_max(t)
+
+    def block(r0, r1, c0, c1):
+        return sat[r1, c1] - sat[r0, c1] - sat[r1, c0] + sat[r0, c0]
+
+    area = ((ts - lo) * (hi - ts)).double()
+    nov = (block(lo, ts, lo, ts) + block(ts, hi, ts, hi) - 2.0 * block(lo, ts, ts, hi)) / area.clamp_min(1.0)
+    return torch.where(area > 0, nov.clamp_min(0.0), 0.0)
+
+def analysis(dev: torch.device, card: str) -> dict:
+    """Phases 34-35: online pYIN and the analysis commands through the
+    port's entry points: ``pyin_online`` and the ``OnlinePyin`` node on the
+    pyin cell's batch, the card against the CPU, the fixed-lag decode
+    against the offline Viterbi on a steady tone; then ``audioflow pitch
+    --method yin|pyin|pyin-online``, ``align``, ``segments`` and ``inspect
+    -g logmel`` in the process, each against ``--device cpu``, the dense
+    Viterbi and LPC at the JAX tests' shapes, and DTW and ``segments`` at
+    full size, timed with their peak device memory. Returns their numbers
+    and each kernel's launches, counted from 0."""
+    import os
+    import tempfile
+
+    from audioflow_torch import ops
+    from audioflow_torch.graph import OnlinePyin, chain
+    from audioflow_torch.io import write_wav
+    from audioflow_torch.ops import pitch as pitch_ops
+    from audioflow_torch.ops import rhythm as rhythm_ops
+    from audioflow_torch.ops import sequence as seq_ops
+    from audioflow_torch.ops.kernels import griffinlim, melspec, timestretch, viterbi
+    from audioflow_torch.profiling import aten_ops, profile, vibrato_batch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from decision_margins import (dtw_common_suffix, online_pyin_flips_explained, online_pyin_trace,
+                                  peak_pick_clear, sat_bound)
+
+    kernels = {"melspec": melspec, "timestretch": timestretch, "griffinlim": griffinlim, "viterbi": viterbi}
+
+    def zero():
+        for k in kernels.values():
+            k.COUNT.launches = 0
+
+    def counts():
+        return {name: k.COUNT.launches for name, k in kernels.items()}
+
+    def peak_mb(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, (torch.cuda.max_memory_allocated() - base) / 1e6
+
+    out = {"seconds": {}}
+    t_phase = time.perf_counter()
+
+    # phase 34: online pYIN at make_online_pyin_plan's defaults on the pyin
+    # cell's batch (64 x 10 s at 16 kHz), offline and streamed, counted from 0
+    plan = ops.make_online_pyin_plan(PVOC_RATE)
+    check((plan.n_bins, plan.lag, plan.frame_length, plan.hop) == (602, 25, 2048, 256), f"plan {plan}")
+    x_np = vibrato_batch(PYIN_BATCH, SECONDS, PVOC_RATE, SEED)
+    x = torch.from_numpy(x_np).to(dev)
+    zero()
+    (f0, vf, vp), first_ms, on_mb = peak_mb(lambda: ops.pyin_online(x_np, PVOC_RATE))
+    _, on_ms, _ = peak_mb(lambda: ops.pyin_online(x, PVOC_RATE))  # the second call: cuFFT plans cached
+    n_frames = f0.shape[-1]
+    check(f0.device.type == "cuda" and f0.shape == vf.shape == vp.shape == (PYIN_BATCH, n_frames),
+          f"pyin_online shapes {tuple(f0.shape)}")
+    check(bool(torch.isfinite(f0).all() and torch.isfinite(vp).all()), "non-finite pyin_online output")
+    g = chain(OnlinePyin(), input_rate=PVOC_RATE)
+    offline = g.chain(x)
+    n_use = x.shape[-1] // EFFECTS_CHUNK * EFFECTS_CHUNK
+    streamed, st_ms, _ = peak_mb(lambda: g.scan_stream(x[:, :n_use], EFFECTS_CHUNK))
+    lat = g.stream_latency(EFFECTS_CHUNK)
+    # a chunk step on its own: the state's set-up (a step over meta tensors
+    # sizes the pendings), then host-clocked steps of a warm stream
+    st_state, init_ms, _ = peak_mb(lambda: g.init_state(EFFECTS_CHUNK, (PYIN_BATCH,), device=dev))
+    step_ms = []
+    for c in range(4):
+        st_state, _ = g.stream_step(st_state, x[:, c * EFFECTS_CHUNK : (c + 1) * EFFECTS_CHUNK])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_state, _ = g.stream_step(st_state, x[:, (c + 4) * EFFECTS_CHUNK : (c + 5) * EFFECTS_CHUNK])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    del st_state
+    n_al = streamed.shape[-2] - lat
+    check(lat == (2048 // 256 - 1) + 25 and n_al > 500, f"OnlinePyin latency {lat}, {n_al} aligned frames")
+    check(torch.equal(streamed[:, lat : lat + n_al], offline[:, :n_al]), "OnlinePyin streamed != offline at its latency")
+    check(torch.equal(offline[:, : n_frames - plan.lag, 0], f0[:, plan.lag :]), "the node's offline form != pyin_online")
+    launches_online = counts()
+    check(not any(launches_online.values()), f"a kernel launched on the online pYIN path: {launches_online}")
+    # the step's three first-maximum rules on the card, on tie-heavy inputs
+    # (values on a coarse grid): the band's offsets at the plan's 139 taps,
+    # the best state over both tracks, the refinement's best candidate; each
+    # equal to the CPU's, which the CPU tests hold to the JAX package's
+    g_rng = np.random.default_rng(SEED)
+    ties = torch.from_numpy((np.round(g_rng.standard_normal((PYIN_BATCH, 2 * plan.n_bins)) * 2) / 2)
+                            .astype(np.float32))
+    _, lk_cpu, _, _ = pitch_ops._pyin_hmm_consts(PVOC_RATE, plan.hop, plan.nbps, plan.max_transition_rate,
+                                                plan.switch_prob)
+    lk_tie = torch.round(lk_cpu * 2) / 2
+    band = [seq_ops.max_plus_band_argmax(t, lk_tie.to(t.device))
+            for t in (ties[:, : plan.n_bins].to(dev), ties[:, : plan.n_bins])]
+    firsts = [t.argmax(dim=-1) for t in (ties.to(dev), ties)] + [t.max(dim=-1)[1] for t in (ties.to(dev), ties)]
+    check(torch.equal(band[0][0].cpu(), band[1][0]) and torch.equal(band[0][1].cpu(), band[1][1])
+          and torch.equal(firsts[0].cpu(), firsts[1]) and torch.equal(firsts[2].cpu(), firsts[3]),
+          "a first-maximum rule differs on the card")
+    n_tied = int((ties == ties.max(dim=-1, keepdim=True).values).sum(dim=-1).gt(1).sum())
+    # where the time goes: aten ops a frame of one chunk step, and the card's idle share
+    fr = ops.frame(x[:, : 64 * plan.hop + plan.frame_length - plan.hop], plan.frame_length, plan.hop)
+    state = ops.online_pyin_init(plan, (PYIN_BATCH,), device=dev)
+    step_ops = aten_ops(lambda: ops.online_pyin_step(plan, state, fr))
+    # the frame loop's share: a 64-frame step less a 1-frame step, over 63
+    frame_ops = (step_ops - aten_ops(lambda: ops.online_pyin_step(plan, state, fr[:, :1]))) / (fr.shape[1] - 1)
+    prof = profile(lambda: ops.pyin_online(x, PVOC_RATE))
+    audio_s = PYIN_BATCH * SECONDS
+    # the card against the CPU on 8 lanes: equal where the decisions that
+    # reach an emission are the same (each parting a near tie)
+    x8 = x_np[:8]
+    cpu = ops.pyin_online(x8, PVOC_RATE, device="cpu")
+    fr8 = ops.frame(torch.from_numpy(x8), plan.frame_length, plan.hop)
+    t_card, t_cpu = online_pyin_trace(plan, fr8.to(dev)), online_pyin_trace(plan, fr8)
+    score_diff = float(np.abs(t_card["score"] - t_cpu["score"]).max())
+    walks = online_pyin_flips_explained(plan, t_cpu, t_card, score_diff)
+    eq = torch.from_numpy(walks["equal"])
+    check(eq.float().mean().item() > 0.9, f"{eq.float().mean().item():.3f} of emissions with equal decisions")
+    check(torch.equal(vf[:8].cpu()[eq], cpu[1][eq]), "voicing differs from the CPU's where the decisions agree")
+    f0_rel = ((f0[:8].cpu() / cpu[0] - 1.0).abs()[eq]).max().item()
+    vp_d = (vp[:8].cpu() - cpu[2]).abs().max().item()
+    check(f0_rel <= ONLINE_F0_RTOL and vp_d <= ONLINE_VP_TOL, f"card vs CPU f0 {f0_rel}, voiced prob {vp_d}")
+    # the fixed-lag decode against the offline Viterbi (the kernel) outside
+    # the lag window on a steady 220 Hz tone (tests/test_pitch.py:344-365)
+    rng = np.random.default_rng(SEED)
+    tt = np.arange(int(SECONDS * PVOC_RATE)) / PVOC_RATE
+    tone = (0.4 * np.sin(2 * np.pi * 220.0 * tt) + 0.01 * rng.standard_normal((8, tt.size))).astype(np.float32)
+    of, ov, _ = ops.pyin_online(tone, PVOC_RATE)
+    zero()
+    vf0, vvf, _ = pitch_ops.pyin_frames(ops.frame(torch.from_numpy(tone).to(dev), 2048, 256), PVOC_RATE, hop=256)
+    check(viterbi.COUNT.launches == 1, f"the offline decode launched the viterbi kernel {viterbi.COUNT.launches} times")
+    dec_f0, dec_vf = of[:, plan.lag :], ov[:, plan.lag :]
+    sl = slice(5, dec_f0.shape[-1] - 5)
+    check(torch.equal(dec_vf[:, sl], vvf[:, : dec_f0.shape[-1]][:, sl]), "online voicing != the offline Viterbi's")
+    tone_rel = (dec_f0[:, sl] / vf0[:, : dec_f0.shape[-1]][:, sl] - 1.0).abs().max().item()
+    check(tone_rel <= 1e-6, f"online f0 vs the offline Viterbi {tone_rel} > 1e-6")
+    out["online"] = {"ms": on_ms, "first_ms": first_ms, "ms_per_frame": on_ms / n_frames, "peak_mb": on_mb,
+                     "stream_ms": st_ms, "init_state_ms": init_ms, "step_ms": step_ms,
+                     "audio_s_per_s": audio_s / on_ms * 1e3, "aten_ops_per_frame": step_ops / fr.shape[1],
+                     "decode_ops_per_frame": frame_ops, "idle_untraced": prof["idle_untraced"],
+                     "idle_traced": prof["idle_traced"], "untraced_ms": prof["untraced_ms"], "busy_ms": prof["busy_ms"],
+                     "flips": walks["flips"], "equal_share": eq.float().mean().item()}
+    print(f"phase 34 online pYIN ({card}): pyin_online at the plan's defaults ({plan.n_bins} bins, lag {plan.lag}, "
+          f"frame {plan.frame_length}, hop {plan.hop}) on {PYIN_BATCH} x {SECONDS:.0f} s -> {n_frames} frames, "
+          f"{on_ms:.1f} ms (the first call {first_ms:.1f}) = {on_ms / n_frames:.3f} ms a frame for {PYIN_BATCH} streams = "
+          f"{audio_s / on_ms * 1e3:.0f} audio-s/s, {on_mb:.0f} MB; OnlinePyin streamed in {EFFECTS_CHUNK}-sample chunks "
+          f"({st_ms:.0f} ms) equals offline at latency {lat} frames exactly ({n_al} frames); init_state "
+          f"{init_ms:.0f} ms, a warm chunk step (64 frames) {json.dumps([round(v, 1) for v in step_ms])} ms; aten ops "
+          f"{step_ops / fr.shape[1]:.1f} a frame in a 64-frame chunk step, {frame_ops:.1f} of them the frame loop's; "
+          f"under the "
+          f"profiler {prof['untraced_ms']:.1f} ms, busy {prof['busy_ms']:.2f} ms, idle {prof['idle_untraced']:.1%} "
+          f"untraced, {prof['idle_traced']:.1%} traced, {prof['launches']} device events; card vs CPU on 8 lanes: "
+          f"{eq.float().mean().item():.4f} of emissions with equal decisions ({walks['flips']} near-tie flips), f0 "
+          f"rel {f0_rel:.2e}, voiced prob {vp_d:.2e}; steady 220 Hz vs the offline Viterbi (1 launch): voicing equal, "
+          f"f0 rel {tone_rel:.2e}; the first-maximum rules equal to the CPU's on tie-heavy inputs ({n_tied} of "
+          f"{PYIN_BATCH} rows tied at their maximum); kernel launches on the online path {json.dumps(launches_online)}")
+    del x, offline, streamed, t_card, t_cpu
+    out["seconds"]["34"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # phase 35: the analysis commands in the process, each against --device cpu
+    with tempfile.TemporaryDirectory() as tmp:
+        pv = os.path.join(tmp, "vibrato.wav")
+        write_wav(pv, x_np[0], PVOC_RATE, bits=32)
+        lines, paths = {}, {}
+        for method in ("yin", "pyin", "pyin-online"):
+            zero()
+            lines[method] = got = run_cli(["pitch", "-i", pv, "--method", method])[-1]
+            paths[f"pitch {method}"] = counts()
+            want = run_cli(["pitch", "-i", pv, "--method", method, "--device", "cpu"])[-1]
+            check(got["frames"] == want["frames"] and [a["t"] for a in got["track"]] == [a["t"] for a in want["track"]],
+                  f"pitch --method {method}: frames")
+            pairs = list(zip(got["track"], want["track"]))
+            same_v = float(np.mean([(a["f0_hz"] is None) == (b["f0_hz"] is None) for a, b in pairs]))
+            f0_d = max(abs(a["f0_hz"] - b["f0_hz"]) - PITCH_F0_RTOL * b["f0_hz"] for a, b in pairs
+                       if a["f0_hz"] is not None and b["f0_hz"] is not None)
+            ap_d = max(abs(a["aperiodicity"] - b["aperiodicity"]) for a, b in pairs)
+            check(same_v >= PITCH_VOICING and f0_d <= 0.0101 and ap_d <= 0.0011,
+                  f"pitch --method {method}: voicing {same_v}, f0 {f0_d}, aperiodicity {ap_d}")
+        out["launches_pitch_cli"] = paths["pitch pyin"]["viterbi"]
+        check(paths["pitch pyin"] == {"melspec": 0, "timestretch": 0, "griffinlim": 0, "viterbi": 1},
+              f"pitch --method pyin launched {paths['pitch pyin']}")
+        # DTW between two 30 s files at 16 kHz (13 MFCCs, n_fft 1024, hop 256):
+        # the second another noise draw, its middle third at double speed
+        pa, pb = os.path.join(tmp, "a.wav"), os.path.join(tmp, "b.wav")
+        xa = vibrato_batch(1, 30.0, PVOC_RATE, SEED)[0]
+        xb = vibrato_batch(1, 30.0, PVOC_RATE, SEED + 1)[0]
+        xb = np.concatenate([xb[: 10 * PVOC_RATE], xb[10 * PVOC_RATE : 20 * PVOC_RATE : 2], xb[20 * PVOC_RATE :],
+                             xb[: 5 * PVOC_RATE]])
+        write_wav(pa, xa, PVOC_RATE, bits=32)
+        write_wav(pb, xb, PVOC_RATE, bits=32)
+        zero()
+        align, align_ms, align_mb = peak_mb(lambda: run_cli(["align", "-a", pa, "-b", pb])[-1])
+        paths["align"] = counts()
+        walign = run_cli(["align", "-a", pa, "-b", pb, "--device", "cpu"])[-1]
+        from audioflow_torch.cli import _analysis_features
+
+        fa, fb = (_analysis_features(s, PVOC_RATE, 1024, 256, dev) for s in (xa, xb))
+        wfa, wfb = (_analysis_features(s, PVOC_RATE, 1024, 256, "cpu") for s in (xa, xb))
+        (acc, path), dtw_ms, dtw_mb = peak_mb(lambda: ops.dtw(fa, fb, metric="cosine"))
+        wacc, wpath = ops.dtw(wfa, wfb, metric="cosine")
+        dtw_d = (acc.cpu() - wacc).abs().max().item()
+        check(dtw_d <= DTW_TOL * wacc[-1, -1].item(), f"DTW card vs CPU {dtw_d} of {wacc[-1, -1].item()}")
+        # the paths share every cell back from the end to a near tie, if any
+        common = dtw_common_suffix(wacc, wpath, path, 2 * dtw_d)
+        # the wavefront alone: one cost on both devices, the sums in one order
+        cost = 1.0 - (wfa / wfa.norm(dim=-1, keepdim=True)) @ (wfb / wfb.norm(dim=-1, keepdim=True)).T
+        cacc, cpath = ops.dtw(cost=cost.clamp_min(0.0).to(dev))
+        ccacc, ccpath = ops.dtw(cost=cost.clamp_min(0.0))
+        check(torch.equal(cacc.cpu(), ccacc) and np.array_equal(cpath, ccpath), "DTW from one cost: card != CPU")
+        check(align["frames_a"] == walign["frames_a"] and align["frames_b"] == walign["frames_b"]
+              and abs(align["cost"] - walign["cost"]) <= dtw_d + 0.001, "align: the card's JSON != the CPU's")
+        check(common < len(wpath) or align["anchors"] == walign["anchors"], "align: equal paths, unequal anchors")
+        # segments on a 180 s music-like file at 44.1 kHz (n_fft 2048, hop 512)
+        pm = os.path.join(tmp, "music.wav")
+        xm = _music_like(SEGMENT_SECONDS, RATE, SEED)
+        write_wav(pm, xm, RATE, bits=32)
+        zero()
+        seg, seg_ms, seg_mb = peak_mb(lambda: run_cli(["segments", "-i", pm])[-1])
+        paths["segments"] = counts()
+        wseg = run_cli(["segments", "-i", pm, "--device", "cpu"])[-1]
+        feats, wfeats = _analysis_features(xm, RATE, 2048, 512, dev), _analysis_features(xm, RATE, 2048, 512, "cpu")
+        t_seg = feats.shape[0]
+        (_, nov), ops_ms, ops_mb = peak_mb(lambda: ops.segment_boundaries(feats))
+        _, wnov = ops.segment_boundaries(wfeats)
+        nov_d = (nov.cpu() - wnov).abs().max().item()
+        # the boundaries where the peak picker's decisions are alike on both
+        # novelty curves (kernel 32: windows and wait of 16 frames)
+        seg_clear = peak_pick_clear(wnov, nov.cpu(), 16, 16, 16, 16, 0.05, 16, SEG_MEAN_SLACK)
+        hop_s = 512 / RATE
+
+        def kept(bounds):
+            return [b for b in bounds if seg_clear[int(round(b / hop_s))]]
+
+        check(seg["frames"] == wseg["frames"] == t_seg and kept(seg["boundaries_s"]) == kept(wseg["boundaries_s"]),
+              f"segments: the card's boundaries {seg['boundaries_s']} != the CPU's {wseg['boundaries_s']}")
+        check(seg_clear.mean() > 0.5 and len(kept(wseg["boundaries_s"])) >= 2,
+              f"segments: {seg_clear.mean():.3f} of frames clear, {len(kept(wseg['boundaries_s']))} boundaries kept")
+        # the summed-area table alone: the same similarity on both devices,
+        # the card's cumsums against the CPU's within the table's fp32 bound
+        s_cpu = ops.self_similarity(wfeats)
+        sat_d = (ops.novelty_curve(s_cpu.to(dev)).cpu() - ops.novelty_curve(s_cpu)).abs()
+        bound = torch.from_numpy(2 * sat_bound(s_cpu, 16))
+        check(bool((sat_d <= bound).all()), f"novelty card vs CPU {sat_d.max().item()} past the table's bound")
+        sat_top = float(s_cpu.double().abs().sum())
+        # and against a float64 table: what storing the table in fp32 (the
+        # reference's algorithm) costs at this T, and the boundaries the
+        # picker finds on the float64 novelty
+        exact = _novelty_f64(s_cpu.to(dev), 16)
+        f64_err = (nov.cpu() - exact.float().cpu()).abs().max().item()
+        f64_bounds = int((rhythm_ops.peak_pick(exact.float(), 16, 16, 16, 16, 0.05, 16)[16:-16]).sum())
+        del s_cpu, exact
+        # inspect -g logmel, and the dense Viterbi and LPC at the JAX tests' shapes
+        zero()
+        ins = run_cli(["inspect", "-g", "logmel"])[-1]
+        paths["inspect"] = counts()
+        wins = run_cli(["inspect", "-g", "logmel", "--device", "cpu"])[-1]
+        check(set(ins) == set(wins) and ins["collectives"] == 0 and ins["fusions"] > 0, f"inspect {ins}")
+        rng = np.random.default_rng(SEED)
+        lo = rng.standard_normal((2, 3, 5, 4)).astype(np.float32)
+        la = np.log(rng.dirichlet(np.ones(4), 4)).astype(np.float32)
+        zero()
+        sv, lp = ops.viterbi(lo, la)
+        wsv, wlp = ops.viterbi(lo, la, device="cpu")
+        check(torch.equal(sv.cpu(), wsv) and torch.equal(lp.cpu(), wlp), "dense viterbi card != CPU")
+        xl = rng.standard_normal((3, 5, 1024)).astype(np.float32)
+        lpc_d = max(((ops.lpc(xl, o).cpu() - ops.lpc(xl, o, device="cpu")).abs().max()
+                     / ops.lpc(xl, o, device="cpu").abs().max()).item() for o in (2, 8, 16))
+        check(lpc_d <= 1e-4, f"lpc card vs CPU {lpc_d}")
+        paths["viterbi, lpc"] = counts()
+    # every new path but inspect -g logmel (the log-mel graph: melspec once a
+    # call) and pitch --method pyin launches no kernel
+    for name, c in paths.items():
+        if name not in ("pitch pyin", "inspect"):
+            check(not any(c.values()), f"{name} launched {c}")
+    check(paths["inspect"]["melspec"] > 0 and not any(v for k, v in paths["inspect"].items() if k != "melspec"),
+          f"inspect -g logmel launched {paths['inspect']}")
+    out["launches"] = {k: launches_online[k] + sum(c[k] for n, c in paths.items() if n not in ("pitch pyin", "inspect"))
+                       for k in kernels}
+    out["launches_inspect"] = paths["inspect"]
+    out["seconds"]["35"] = time.perf_counter() - t_phase
+    out["dtw"] = {"frames": [int(fa.shape[0]), int(fb.shape[0])], "ms": dtw_ms, "peak_mb": dtw_mb,
+                  "cli_ms": align_ms, "cli_peak_mb": align_mb, "acc_diff": dtw_d, "path_shared": common,
+                  "path_len": len(wpath)}
+    out["segments"] = {"frames": t_seg, "ms": ops_ms, "peak_mb": ops_mb, "cli_ms": seg_ms, "cli_peak_mb": seg_mb,
+                       "novelty_diff": nov_d, "sat_diff": sat_d.max().item(), "sat_top": sat_top,
+                       "boundaries": len(seg["boundaries_s"]), "clear_share": float(seg_clear.mean()),
+                       "f64_err": f64_err, "f64_boundaries": f64_bounds}
+    print(f"phase 35 analysis CLI ({card}): pitch yin/pyin/pyin-online {lines['yin']['frames']}/"
+          f"{lines['pyin']['frames']}/{lines['pyin-online']['frames']} frames, each equal to --device cpu within "
+          f"its rounding (voicing >= {PITCH_VOICING}); pitch --method pyin launched viterbi "
+          f"{out['launches_pitch_cli']} time; align of 30 s files ({fa.shape[0]} x {fb.shape[0]} frames) "
+          f"{align_ms:.0f} ms, {align_mb:.0f} MB, the DTW alone {dtw_ms:.0f} ms, {dtw_mb:.1f} MB, acc card vs CPU "
+          f"{dtw_d:.2e}, the paths share {common} of {len(wpath)} cells back from the end (to a near tie, if "
+          f"fewer), from one cost equal; segments of {SEGMENT_SECONDS:.0f} s at {RATE} Hz (T = {t_seg}) "
+          f"{seg_ms:.0f} ms, peak {seg_mb:.0f} MB, the ops alone {ops_ms:.0f} ms, {ops_mb:.0f} MB, "
+          f"{len(seg['boundaries_s'])} boundaries, equal to the CPU's on the {seg_clear.mean():.4f} of frames where "
+          f"the picker decides alike (novelty diff {nov_d:.2e}); the table alone card vs CPU "
+          f"{sat_d.max().item():.3e} (bound from fp32 spacing at "
+          f"{sat_top:.3e}); the novelty against a float64 table max|d| {f64_err:.3e} (the picker finds "
+          f"{f64_bounds} boundaries on it); "
+          f"inspect -g logmel {json.dumps(ins)} (CPU {json.dumps(wins)}); dense viterbi equal, lpc "
+          f"{lpc_d:.2e}; kernel launches by path {json.dumps(paths)}")
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; the port's smoke test runs only on one", file=sys.stderr)
         return 1
@@ -2225,6 +2595,11 @@ def main() -> int:
     lv = dict_out["launches_validate"]
     mastering(dev, card)
     cqt_out = cqt_rhythm(dev, card)
+    ana = analysis(dev, card)
+    la = ana["launches"]
+
+    print(json.dumps({"seconds": {"phase_34": ana["seconds"]["34"], "phase_35": ana["seconds"]["35"],
+                                  "whole_run": time.perf_counter() - t_start}}))
 
     print(json.dumps({"kernels": [
         {
@@ -2232,7 +2607,8 @@ def main() -> int:
             "replaces": "audioflow_tpu/ops/pallas/melspec.py:137", "launches": launches,
             "launches_config5": launches5, **files, "launches_session": dict_out["launches_session"],
             "launches_dictation": dict_out["launches_dictation"], "launches_validate": lv["melspec"],
-            "launches_cqt_rhythm": cqt_out["launches"]["melspec"],
+            "launches_cqt_rhythm": cqt_out["launches"]["melspec"], "launches_analysis": la["melspec"],
+            "launches_inspect": ana["launches_inspect"]["melspec"],
             "max_abs_err": kernel_err, "ms": k_ms, "ms_readings": k_t[1], "plain_ms": p_ms,
             "bound_ms": ms_bound, "bound_by": ms_by, "library_ms": None, "path": ms_path, "cufft_ms": c_ms,
         },
@@ -2240,6 +2616,7 @@ def main() -> int:
             "name": "timestretch", "route": "cuda", "source": "audioflow_torch/csrc/timestretch.cu",
             "replaces": "audioflow_tpu/ops/pallas/timestretch.py:358", "launches": ts_launches,
             "launches_validate": lv["timestretch"], "launches_cqt_rhythm": cqt_out["launches"]["timestretch"],
+            "launches_analysis": la["timestretch"],
             "max_abs_err": ts_err, "ms": ts_ms, "ms_readings": ts_t[1], "plain_ms": tp_ms,
             "bound_ms": ts_bound, "bound_by": ts_by, "library_ms": None, "path": ts_path, "cufft_ms": tc_ms,
         },
@@ -2247,6 +2624,7 @@ def main() -> int:
             "name": "griffinlim", "route": "cuda", "source": "audioflow_torch/csrc/griffinlim.cu",
             "replaces": "audioflow_tpu/ops/pallas/griffinlim.py:216", "launches": gl_launches,
             "launches_validate": lv["griffinlim"], "launches_cqt_rhythm": cqt_out["launches"]["griffinlim"],
+            "launches_analysis": la["griffinlim"],
             "max_abs_err": gl_err, "ms": gk_ms, "ms_readings": gk_t[1], "plain_ms": gp_ms,
             "bound_ms": gl_bound, "bound_by": gl_by, "library_ms": None, "path": gl_path, "cufft_ms": gc_ms,
         },
@@ -2254,6 +2632,7 @@ def main() -> int:
             "name": "viterbi", "route": "cuda", "source": "audioflow_torch/csrc/viterbi.cu",
             "replaces": "audioflow_tpu/ops/pallas/viterbi.py:124", "launches": vit_launches,
             "launches_validate": lv["viterbi"], "launches_cqt_rhythm": cqt_out["launches"]["viterbi"],
+            "launches_analysis": la["viterbi"], "launches_pitch_cli": ana["launches_pitch_cli"],
             "max_abs_err": vit_err, "ms": vk_ms, "ms_readings": vk_t[1], "plain_ms": vp_ms,
             "bound_ms": vit_bound, "bound_by": vit_by, "library_ms": None, "cluster": vit_cluster,
         },

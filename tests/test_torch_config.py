@@ -152,12 +152,17 @@ def test_port_spec_equals_jax_spec_and_round_trips():
 
 
 def test_spec_with_unported_node_raises_naming_it():
+    """Every JAX node is ported (a JAX ``OnlinePyin`` spec loads
+    as the port's node), so the unported node is a JAX spec's node renamed
+    to a type no package registers."""
     from audioflow_tpu import graph as jgraph
 
     spec = _spec_json(jgraph.chain(jgraph.OnlinePyin(), input_rate=16000))
+    assert tconfig.graph_from_spec(spec) == tgraph.chain(tgraph.OnlinePyin(), input_rate=16000)
+    spec["nodes"][0]["type"] = "OnlinePyinUnported"
     with pytest.raises(ConfigError) as e:
         tconfig.graph_from_spec(spec)
-    assert e.value.code.value == "CONFIG_VALIDATION_ERROR" and "'OnlinePyin'" in e.value.message
+    assert e.value.code.value == "CONFIG_VALIDATION_ERROR" and "'OnlinePyinUnported'" in e.value.message
     with pytest.raises(ConfigError) as e:
         tconfig.graph_from_spec({"nodes": [{"type": "Gain", "bogus": 1}]})
     assert e.value.code.value == "CONFIG_VALIDATION_ERROR" and "Gain" in e.value.message

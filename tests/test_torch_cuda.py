@@ -774,3 +774,134 @@ def test_beat_track_on_card_matches_cpu(cuda_device):
     mask, bpm = beat_track(env.to(cuda_device), 16000, 256)
     want_mask, want_bpm = beat_track(env, 16000, 256)
     assert mask.device.type == "cuda" and torch.equal(mask.cpu(), want_mask) and torch.equal(bpm.cpu(), want_bpm)
+
+
+def test_dense_viterbi_and_lpc_on_card_match_cpu(cuda_device):
+    """The dense Viterbi's max-plus is elementwise fp32 adds and maxima, so
+    the card's decode is the CPU's exactly; LPC within the CPU test's 1e-4
+    of the peak (the autocorrelation's sums in another order)."""
+    from audioflow_torch.ops import lpc, viterbi as dense_viterbi
+
+    rng = np.random.default_rng(3)
+    lo = rng.standard_normal((2, 3, 40, 6)).astype(np.float32)
+    a = rng.random((6, 6))
+    la = np.log(a / a.sum(1, keepdims=True)).astype(np.float32)
+    got, glp = dense_viterbi(lo, la)
+    want, wlp = dense_viterbi(lo, la, device="cpu")
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want) and torch.equal(glp.cpu(), wlp)
+    x = rng.standard_normal((3, 5, 1024)).astype(np.float32)
+    for order in (4, 12):
+        g, w = lpc(x, order).cpu(), lpc(x, order, device="cpu")
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+def test_dtw_on_card_matches_cpu(cuda_device):
+    """From a given cost the wavefront's sums are the CPU's, in order: the
+    accumulated costs and the path exactly. From features the cost's
+    products round differently: the path where its steps clear the margin."""
+    from audioflow_torch.ops import dtw
+    from decision_margins import dtw_path_margin
+
+    rng = np.random.default_rng(4)
+    c = rng.random((57, 43)).astype(np.float32)
+    acc, path = dtw(cost=c)
+    wacc, wpath = dtw(cost=c, device="cpu")
+    assert acc.device.type == "cuda" and torch.equal(acc.cpu(), wacc) and np.array_equal(path, wpath)
+    x = rng.standard_normal((60, 13)).astype(np.float32)
+    y = np.concatenate([x[::2], x[30:]]) + 0.1 * rng.standard_normal((60, 13)).astype(np.float32)
+    acc, path = dtw(x, y, metric="cosine")
+    wacc, wpath = dtw(x, y, metric="cosine", device="cpu")
+    diff = (acc.cpu() - wacc).abs().max().item()
+    assert diff <= 1e-5 * wacc[-1, -1].item() and dtw_path_margin(wacc, wpath) > 2 * diff
+    assert np.array_equal(path, wpath)
+
+
+def test_segment_ops_on_card_match_cpu(cuda_device):
+    """Similarities within 1e-5; the novelty within the summed-area table's
+    fp32 bound (the card's cumsum sums in another order); the recurrence
+    matrix and the boundaries where their decisions clear the margins."""
+    from audioflow_torch.ops import novelty_curve, recurrence_matrix, segment_boundaries, self_similarity
+    from decision_margins import knn_margin, peak_pick_margins, sat_bound
+
+    rng = np.random.default_rng(5)
+    c = np.eye(3, 13, dtype=np.float32) * 4
+    feats = np.concatenate([np.tile(c[i], (80, 1)) for i in range(3)]) + 0.3 * rng.standard_normal((240, 13)).astype(
+        np.float32)
+    s, ws = self_similarity(feats), self_similarity(feats, device="cpu")
+    sim_diff = (s.cpu() - ws).abs().max().item()
+    assert sim_diff <= 1e-5
+    nov, wnov = novelty_curve(s, 32).cpu(), novelty_curve(ws, 32)
+    assert ((nov - wnov).abs().numpy() <= 2 * sat_bound(ws, 16) + 1e-5).all()
+    assert knn_margin(ws, 16, 1) > 2 * sim_diff
+    assert torch.equal(recurrence_matrix(feats).cpu(), recurrence_matrix(feats, device="cpu"))
+    mask, nov = segment_boundaries(feats)
+    wmask, wnov = segment_boundaries(feats, device="cpu")
+    diff = (nov.cpu() - wnov).abs().max().item()
+    m = peak_pick_margins(wnov, 16, 16, 16, 16, 0.05, slack=2 * diff)
+    assert min(m.values()) > 2 * diff and torch.equal(mask.cpu(), wmask) and int(wmask.sum()) >= 2
+
+
+def test_piptrack_on_card_matches_cpu(cuda_device):
+    from audioflow_torch.ops import piptrack
+
+    rng = np.random.default_rng(6)
+    s = np.abs(rng.standard_normal((2, 30, 1025))).astype(np.float32) + 5.0 * np.eye(30, 1025, 40, np.float32)
+    p, m = piptrack(s, 22050, 2048)
+    wp, wm = piptrack(s, 22050, 2048, device="cpu")
+    assert p.device.type == "cuda" and torch.equal(p.cpu() > 0, wp > 0)
+    assert (p.cpu() - wp).abs().max() <= 1e-5 * wp.max() and (m.cpu() - wm).abs().max() <= 1e-5 * wm.max()
+
+
+def test_pyin_online_on_card_matches_cpu_and_streams(cuda_device):
+    """The fixed-lag tracker on the card against the CPU: equal where the
+    decisions reaching an emission are the same on both (each place where
+    they part a near tie of the messages, ``online_pyin_flips_explained``);
+    the OnlinePyin node streamed on the card equal to its offline form at
+    the declared latency, for two chunk sizes."""
+    from audioflow_torch.graph import OnlinePyin
+    from audioflow_torch.ops import frame, make_online_pyin_plan, pyin_online
+    from decision_margins import online_pyin_flips_explained, online_pyin_trace
+
+    rng = np.random.default_rng(7)
+    t = np.arange(20000) / 8000
+    x = (0.4 * np.sin(2 * np.pi * np.cumsum(180 + 40 * np.sin(2 * np.pi * 0.7 * t)) / 8000)).astype(np.float32)
+    x = np.stack([x, np.roll(x, 3000)]) + 0.01 * rng.standard_normal((2, 20000)).astype(np.float32)
+    kw = dict(n_thresholds=16, resolution=0.5)
+    plan = make_online_pyin_plan(8000, 100.0, 400.0, 512, 128, 10, **kw)
+    got = pyin_online(x, 8000, 100.0, 400.0, 512, 128, 10, **kw)
+    want = pyin_online(x, 8000, 100.0, 400.0, 512, 128, 10, device="cpu", **kw)
+    fr = frame(torch.from_numpy(x), 512, 128)
+    card, cpu = online_pyin_trace(plan, fr.to(cuda_device)), online_pyin_trace(plan, fr)
+    score_diff = float(np.abs(card["score"] - cpu["score"]).max())
+    equal = online_pyin_flips_explained(plan, cpu, card, score_diff)["equal"]
+    assert equal.mean() > 0.9
+    assert torch.equal(got[1].cpu()[equal], want[1][equal])
+    assert ((got[0].cpu() / want[0] - 1.0).abs()[equal] <= 1e-5).all()
+    assert (got[2].cpu() - want[2]).abs().max() <= 1e-5
+    g = chain(OnlinePyin(100.0, 400.0, 512, 128, 10, **kw), input_rate=8000)
+    xd = torch.from_numpy(x).to(cuda_device)
+    offline = g.chain(xd)
+    for chunk in (512, 2048):
+        n_use = x.shape[-1] // chunk * chunk
+        streamed = g.scan_stream(xd[:, :n_use], chunk)
+        lat = g.stream_latency(chunk)
+        n = streamed.shape[-2] - lat
+        assert streamed.device.type == "cuda" and torch.equal(streamed[:, lat : lat + n], offline[:, :n])
+
+
+def test_first_maximum_rules_on_card(cuda_device):
+    """The online tracker's three first-maximum rules on tie-heavy values
+    (a coarse grid): the band's offsets (``max`` over the window), the
+    best state (``argmax``) and the refinement's best candidate (``max``
+    with its index) take the first maximum on the card, as on the CPU."""
+    from audioflow_torch.ops import sequence
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy((np.round(rng.standard_normal((16, 602)) * 2) / 2).astype(np.float32))
+    lk = torch.from_numpy((np.round(rng.standard_normal(139) * 2) / 2).astype(np.float32))
+    got = sequence.max_plus_band_argmax(x.to(cuda_device), lk.to(cuda_device))
+    want = sequence.max_plus_band_argmax(x, lk)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(x.to(cuda_device).argmax(dim=-1).cpu(), x.argmax(dim=-1))
+    assert torch.equal(x.to(cuda_device).max(dim=-1)[1].cpu(), x.max(dim=-1)[1])
+    assert ((x == x.max(dim=-1, keepdim=True).values).sum(dim=-1) > 1).any()  # the case has ties

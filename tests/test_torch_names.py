@@ -4,9 +4,8 @@
 taken in a fresh interpreter (a test process imports submodules, such as the
 JAX package's Pallas kernels, that would add names of their own). Every
 public name of the JAX package is in the port, except exactly the names of
-the modules that ROADMAP Queue A has not ported yet: A9's fourth group (the
-rest of ``pitch`` and ``sequence``, ``lpc`` and ``segment``) and A10
-(``augment``, ``trainable``). A later slice shrinks the list.
+the modules that ROADMAP Queue A has not ported yet: A10 (``augment``,
+``trainable``).
 """
 
 import json
@@ -18,16 +17,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 NOT_PORTED = {
-    "ops": {
-        # A9, fourth group: online pYIN and piptrack, dense viterbi and dtw,
-        # lpc, segment
-        "OnlinePyinPlan", "make_online_pyin_plan", "online_pyin_init", "online_pyin_step", "pyin_online",
-        "piptrack", "viterbi", "dtw", "lpc", "lpc_from_autocorr", "lpc_mod", "lpc_residual_energy", "segment",
-        "cross_similarity", "novelty_curve", "recurrence_matrix", "segment_boundaries", "self_similarity",
-        # A10: augmentation
-        "augment", "freq_mask", "spec_augment", "time_mask",
-    },
-    "graph": {"OnlinePyin"},
+    # A10: augmentation and the trainable head
+    "ops": {"augment", "freq_mask", "spec_augment", "time_mask"},
+    "graph": set(),
     "models": {"TrainableFrontend", "make_train_step", "trainable"},
     "utils": set(),
 }

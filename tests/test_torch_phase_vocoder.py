@@ -324,8 +324,8 @@ def test_port_imports_no_jax():
     tests import names JAX or the JAX package in an import; and importing
     every module of the port in a fresh interpreter loads neither."""
     files = [*sorted((ROOT / "audioflow_torch").rglob("*.py")), ROOT / "chip_smoke.py", ROOT / "tests" / "ws_loopback.py",
-             ROOT / "tests" / "decision_margins.py", ROOT / "examples" / "cqt_edit_torch.py"]
-    assert {"cqt.py", "rhythm.py"} <= {p.name for p in files}
+             ROOT / "tests" / "decision_margins.py", *sorted((ROOT / "examples").glob("*_torch.py"))]
+    assert {"cqt.py", "rhythm.py", "lpc.py", "segment.py", "streaming_session_torch.py"} <= {p.name for p in files}
     for path in files:
         bad = [m for m in _imports(path) if m.split(".")[0] in ("jax", "jaxlib", "audioflow_tpu")]
         assert not bad, (path, bad)
