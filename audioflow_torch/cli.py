@@ -241,13 +241,42 @@ def _user_config(args):
 
 
 def cmd_run(args) -> int:
+    """``run``; with ``--sharded``, over the world of ranks: one rank on
+    the card under a plain call, or the ranks ``torch.distributed.run``
+    starts (``--dist-backend gloo`` for ranks that share a card)."""
+    from .utils import resolve_device
+
+    device = resolve_device(args.device)
+    if not args.sharded:
+        return _run(args, device, None)
+    import torch.distributed as dist
+
+    from .parallel import make_mesh, multihost_init
+
+    one = "WORLD_SIZE" not in os.environ
+    created = multihost_init(
+        num_processes=1 if one else None, process_id=0 if one else None,
+        backend=args.dist_backend or ("nccl" if device.type == "cuda" else "gloo"),
+    )
+    try:
+        return _run(args, device, make_mesh(devices=device.type))
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _run(args, device, mesh) -> int:
     from .obs import RunMetrics, Timer
     from .obs.metrics import sync
-    from .utils import as_tensor, resolve_device, round_up
+    from .utils import as_tensor, round_up
 
-    if args.sharded:
-        raise SystemExit("--sharded is not ported to audioflow_torch yet; the port runs on one card")
-    device = resolve_device(args.device)
+    root = True
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from .parallel import mesh_device
+
+        device, root = mesh_device(mesh), dist.get_rank() == 0
     cfg = _user_config(args)
     files = _expand_inputs(args.input)
 
@@ -285,10 +314,11 @@ def cmd_run(args) -> int:
         )
         g = _graph_for(args, input_rate, cfg)
         stride = round_up(int(max_frames), 1024)
-        sink = auto_sink(args.output, sample_rate=g.output_rate)
+        sink = auto_sink(args.output, sample_rate=g.output_rate) if root else None
         loader = BatchLoader(files, batch_size=args.batch_size, stride=stride)
-        m = run_batches(g, loader, sinks=[sink], expect_rate=input_rate, device=device)
-        _finish(sink, m)
+        m = run_batches(g, loader, sinks=[sink] if root else [], mesh=mesh, expect_rate=input_rate, device=device)
+        if root:
+            _finish(sink, m)
         return 0
 
     batch = _load_batch(files, pad_multiple=1024)
@@ -301,13 +331,27 @@ def cmd_run(args) -> int:
     input_rate = args.input_rate or (rates.pop() if rates else cfg.audio.sample_rate)
     g = _graph_for(args, input_rate, cfg)
 
-    fn = g.compile()
-    x = as_tensor(batch.samples, device)
+    if mesh is None:
+        fn = g.compile()
+        x = as_tensor(batch.samples, device)
+    else:
+        from .parallel import _comm, compile_sharded, pad_batch, shard_batch
+
+        padded, _ = pad_batch(batch.samples, mesh)
+        x = shard_batch(padded, mesh)
+        local = compile_sharded(g, mesh)
+
+        def fn(xl):
+            out = local(xl)
+            return _comm.all_gather(out, mesh.get_group("data")).reshape(-1, *out.shape[1:])
+
     with Timer() as tc:  # first call: kernel builds at first use
         sync(fn(x))
     with Timer() as tr:
         out = fn(x)
         sync(out)
+    if not root:
+        return 0
     host = out.cpu().numpy()[: len(files)]
 
     m = RunMetrics(
@@ -317,7 +361,7 @@ def cmd_run(args) -> int:
         files=len(files),
         failed_files=int((~batch.valid).sum()),
         batches=1,
-        n_devices=1,
+        n_devices=1 if mesh is None else mesh.size(),
     )
     sink = auto_sink(args.output, sample_rate=g.output_rate)
     sink.write(host)
@@ -697,7 +741,11 @@ def main(argv: list[str] | None = None) -> int:
     r.add_argument("--spec", help="JSON GraphSpec file (overrides --graph)")
     r.add_argument("--input-rate", type=int)
     r.add_argument("--batch-size", type=int, default=0, help="pipeline files in batches of this size")
-    r.add_argument("--sharded", action="store_true", help="not ported yet: exits with an error")
+    r.add_argument("--sharded", action="store_true",
+                   help="shard the batch over the world's ranks (one rank unless started by torch.distributed.run)")
+    r.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                   help="--sharded's process-group backend (default: nccl on the card, gloo on the CPU; gloo for "
+                        "ranks that share one card)")
     r.add_argument("--multirate", action="store_true",
                    help="cqtroundtrip only: the broadband-invertible per-octave-hop CQT variant (ops.cqt_multirate)")
     r.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")

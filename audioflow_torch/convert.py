@@ -19,6 +19,12 @@ lists, tuples and named tuples in field order, dicts by sorted key, ``k`` an
 int32 leaf. :func:`state_leaves` and :func:`state_from_leaves` give and take
 that order, so a snapshot of either package restores in the other.
 
+A trainable frontend's parameters (``models.TrainableFrontend``) are the
+one place the system has weights: :func:`trainable_from_jax` loads the JAX
+package's ``TrainableFrontend.init_params()`` (a dict of numpy arrays) into
+the port's module, and :func:`trainable_to_numpy` gives them back in that
+form.
+
 A multirate CQT (``ops.cqt(..., multirate=True)``) is one array per octave
 plus static metadata: :func:`multirate_cqt_from_jax` and
 :func:`multirate_cqt_to_numpy` carry it between the packages.
@@ -140,3 +146,26 @@ def multirate_cqt_to_numpy(c: MultirateCqt) -> tuple[list[np.ndarray], dict]:
     """``(octaves as numpy arrays, the metadata's fields as a dict)``, from
     which the JAX package rebuilds its ``MultirateCqt(octaves, _MrMeta(**fields))``."""
     return [o.detach().cpu().numpy() for o in c.octaves], {k: getattr(c.meta, k) for k in _MrMeta.__slots__}
+
+
+def trainable_from_jax(model, params_np: dict) -> None:
+    """Copy the JAX package's trainable-frontend parameters (the dict of
+    ``TrainableFrontend.init_params()``, arrays as numpy) into ``model``'s
+    parameters of the same names, in place, on the model's device. The two
+    must hold the same names and shapes."""
+    own = dict(model.named_parameters())
+    if set(own) != set(params_np):
+        raise ValueError(f"parameter names differ: {sorted(own)} vs {sorted(params_np)}")
+    with torch.no_grad():
+        for name, p in own.items():
+            a = np.asarray(params_np[name])
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {a.shape} vs the model's {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(a.astype(np.float32)))
+
+
+def trainable_to_numpy(model) -> dict:
+    """``model``'s parameters as the JAX package's parameter dict of numpy
+    arrays (``jax.numpy.asarray`` of each gives its pytree): copies, which a
+    later step does not change."""
+    return {name: p.detach().to("cpu", copy=True).numpy() for name, p in model.named_parameters()}

@@ -1,4 +1,4 @@
-"""Standard pipeline constructors."""
+"""Standard pipeline constructors and the trainable feature frontend."""
 
 from .pipelines import (
     beat_graph,
@@ -16,9 +16,10 @@ from .pipelines import (
     vad_graph,
     wire_egress_graph,
 )
+from .trainable import TrainableFrontend, make_train_step
 
 __all__ = [
     "eq_bands_default", "eq_chain_graph", "kaldi_fbank_frontend", "log_mel_frontend", "master_chain_graph",
     "stft_magnitude_graph", "vad_graph", "wire_egress_graph", "delta_fbank_frontend", "denoise_master_chain",
-    "kws_frontend", "beat_graph", "cqt_frontend", "onset_frontend",
+    "kws_frontend", "beat_graph", "cqt_frontend", "onset_frontend", "TrainableFrontend", "make_train_step",
 ]

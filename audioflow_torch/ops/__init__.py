@@ -1,9 +1,10 @@
 """Signal ops of the port: plain torch on tensors, fp32 matmuls."""
 
-from . import biquad, decompose, dynamics, effects, features, fir, loudness, quantize, rhythm, ring, segment, vad
+from . import augment, biquad, decompose, dynamics, effects, features, fir, loudness, quantize, rhythm, ring, segment, vad
 from . import cqt as cqt_mod
 from . import lpc as lpc_mod
 from ._mm import get_default_matmul_precision, set_default_matmul_precision
+from .augment import freq_mask, spec_augment, time_mask
 from .biquad import (
     Biquad,
     allpass,
@@ -172,4 +173,6 @@ __all__ = [
     "OnlinePyinPlan", "cross_similarity", "dtw", "lpc", "lpc_from_autocorr", "lpc_mod", "lpc_residual_energy",
     "make_online_pyin_plan", "novelty_curve", "online_pyin_init", "online_pyin_step", "piptrack", "pyin_online",
     "recurrence_matrix", "segment", "segment_boundaries", "self_similarity", "viterbi",
+    # SpecAugment
+    "augment", "freq_mask", "spec_augment", "time_mask",
 ]

@@ -42,6 +42,7 @@ def run_batch(
     batch_size: int,
     expect_rate: int | None,
     device: torch.device,
+    mesh=None,
 ) -> torch.Tensor:
     """One batch of :func:`run_batches`: the masked output of its lanes, on
     ``device``, without waiting for the device.
@@ -49,6 +50,9 @@ def run_batch(
     The batch is brought to ``stride`` samples (truncated with a warning, or
     zero-padded) and to ``batch_size`` rows (the tail batch), and lanes
     whose rate is not ``expect_rate`` are marked invalid in ``batch.valid``.
+    With ``mesh``, the rows are padded to a multiple of the data dim
+    (``parallel.pad_batch``), each rank runs the graph on its own rows, and
+    every rank receives the whole output (one all-gather).
     """
     x = batch.samples
     if x.shape[1] > stride:
@@ -60,12 +64,19 @@ def run_batch(
         batch.valid &= ~bad_rate
     vmask = np.zeros(batch_size, dtype=bool)
     vmask[: len(batch.paths)] = batch.valid
+    if mesh is not None:  # to a multiple of the data dim, the extra rows invalid
+        from .parallel import _comm, pad_batch, shard_batch
+
+        vmask = pad_batch(vmask, mesh)[0]
     xd = torch.from_numpy(x).to(device, non_blocking=True)
     # the same zero padding as the JAX package: to the stride, and to a full
     # batch for the tail
-    xd = torch.nn.functional.pad(xd, (0, stride - xd.shape[1], 0, batch_size - xd.shape[0]))
+    xd = torch.nn.functional.pad(xd, (0, stride - xd.shape[1], 0, len(vmask) - xd.shape[0]))
     vd = torch.from_numpy(vmask).to(device)
-    return mask_lanes(graph.chain(xd), vd)[: len(batch.paths)]
+    if mesh is None:
+        return mask_lanes(graph.chain(xd), vd)[: len(batch.paths)]
+    out = mask_lanes(graph.chain(shard_batch(xd, mesh)), shard_batch(vd, mesh))
+    return _comm.all_gather(out, mesh.get_group("data")).flatten(0, 1)[: len(batch.paths)]
 
 
 def run_batches(
@@ -94,24 +105,39 @@ def run_batches(
     ``compile_seconds`` is the time of a warm-up call of the first batch,
     synchronised, any kernel build at first use included; as in the JAX
     package, ``wall_seconds`` leaves it out, and the first batch is then run
-    again inside the wall time. ``mesh`` (data-parallel sharding) is not
-    ported yet and raises.
+    again inside the wall time.
+
+    With ``mesh`` (a ``DeviceMesh`` with a "data" dim; every rank of the
+    world calls this with the same loader), each batch is padded to a
+    multiple of the data dim, each rank runs the graph on its rows on the
+    mesh's device (``device`` is then not read), and the outputs are
+    gathered; rank 0 alone writes the sinks and emits the events.
+    ``n_devices`` is the world size.
     """
-    if mesh is not None:
-        raise ConfigError(
-            "mesh= (sharded batches) is not ported to audioflow_torch yet; one card",
-            code=ErrorCode.CONFIG_VALIDATION_ERROR,
-        )
-    device = resolve_device(device)
+    if mesh is None:
+        device, n_dev, root = resolve_device(device), 1, True
+    else:
+        import torch.distributed as dist
+
+        from .parallel import mesh_device
+
+        if mesh.mesh_dim_names != ("data",):
+            raise ConfigError(
+                f"run_batches shards over a 1-D ('data',) mesh, got {mesh.mesh_dim_names}",
+                code=ErrorCode.CONFIG_VALIDATION_ERROR,
+            )
+        device, n_dev, root = mesh_device(mesh), mesh.size(), dist.get_rank() == 0
     events = events or EventDispatcher(enabled=False)
     expect_rate = expect_rate or graph.input_rate
 
-    m = RunMetrics(n_devices=1)
+    m = RunMetrics(n_devices=n_dev)
     pending = None  # (device_out, batch) — one batch of latency for overlap
     stride = loader.stride
 
     def _flush(pair):
         dev_out, batch = pair
+        if not root:
+            return
         host = dev_out.cpu().numpy()
         ok = batch.valid
         for sink in sinks:
@@ -124,9 +150,9 @@ def run_batches(
                 stride = batch.samples.shape[1]
             if m.batches == 0:
                 with Timer() as tc:
-                    sync(run_batch(graph, batch, stride, loader.batch_size, expect_rate, device))
+                    sync(run_batch(graph, batch, stride, loader.batch_size, expect_rate, device, mesh))
                 m.compile_seconds = tc.elapsed
-            out = run_batch(graph, batch, stride, loader.batch_size, expect_rate, device)
+            out = run_batch(graph, batch, stride, loader.batch_size, expect_rate, device, mesh)
             if pending is not None:
                 _flush(pending)
             pending = (out, batch)

@@ -9,7 +9,10 @@ and feature families (denoise mastering, keyword spotting, the effects
 chain, the feature graphs, the loudness meter, NMF separation), and the CQT
 and rhythm families (the CQT and its inverses, ``run -g
 cqt|cqtroundtrip|onset|beats``, tempo, the beat DP, the streaming beat
-graph), and checks them. The log-mel frontend
+graph), the trainable frontend's train step (one card, and an NCCL world of
+one rank), and the multi-rank paths (gloo worlds of 2 and 4 ranks on the
+card: batch and time sharding, the DP x TP step, ``run --sharded`` under
+``torch.distributed.run``), and checks them. The log-mel frontend
 ``log_mel_frontend(44100, 16000, 1024, 256, 128, center=False)`` streamed in
 14,112-sample chunks over a 512 x 10 s tone batch (kernel ``melspec``);
 BASELINE config 4, time-stretch and pitch-shift, offline through
@@ -201,13 +204,34 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
     cpu``; ``pitch --method pyin`` launches viterbi exactly once, counted
     from 0; the dense Viterbi and LPC at the JAX tests' shapes; DTW and
     ``segments`` timed with their peak device memory, the novelty's
-    summed-area table against the CPU within its fp32 bound.
+    summed-area table against the CPU within its fp32 bound;
+36. training: ``examples/train_kws_torch.py``'s assertions on the card;
+    ``TrainableFrontend`` at its defaults and with ``hidden=256`` on 256
+    keyword-shaped clips of 1 s, one step on the card against the same step
+    on the CPU (loss, gradients, the parameters after one Adam step where
+    the gradient clears its margin), ms a step by CUDA events, clips/s, peak
+    memory and device launches a step, with ``remat`` off and on; the step
+    over an NCCL world of one rank, exactly the unsharded step, with NCCL's
+    kernels in its profile; no kernel of the port launched;
+37. sharding: gloo worlds of 2 and 4 ranks (spawned processes that share
+    the card, each world under a deadline): ``compile_sharded`` in batch
+    mode (``log_mel_frontend`` over 64 x 10 s) against ``graph.chain``, in
+    time mode over one 600 s speech-like recording (``log_mel_frontend``'s
+    Resample -> LogMelSpec, melspec launches counted per rank, and
+    ``master_chain_graph``'s BiquadChain + Limiter at 16 kHz) against the
+    unsharded run on the card, both log-mel modes also against the plain
+    (unfused) graph, so that the melspec kernel is held to its plain
+    version at the shapes these paths give it; gloo's all-reduce and
+    all-gather checked on values with CUDA tensors; on 4 ranks the DP x TP step on a (2, 2) mesh against the
+    single-process step; ``run --sharded`` under ``torch.distributed.run``
+    with 2 ranks over phase 19's files, exactly ``run --batch-size 16``'s
+    output (the ranks' halves of each batch of 32).
 
 Every device time (phases 3, 6, 9, 12) is the median of three readings
 under torch.profiler, printed with the readings and the device events per
 call; a kernel's reading sums the mean time per launch of each kernel it
 runs once a call, which events the profiler drops or repeats do not bias. Then a JSON line of the seconds of
-phases 34 and 35 and of the whole run, one JSON line of per-kernel numbers (with ``path`` and ``cufft_ms``
+phases 34 to 37 and of the whole run, one JSON line of per-kernel numbers (with ``path`` and ``cufft_ms``
 for the three kernels built on the shared-memory FFT, ``cluster`` for
 viterbi), and last
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a card, or
@@ -375,6 +399,39 @@ SEG_MEAN_SLACK = 1e-4
 DP_MARGIN = 1e-3
 ENV_MARGIN = 1e-5
 LAG_MARGIN = 1e-5
+# training (phase 36): TrainableFrontend at its defaults (n_fft 512, hop 128,
+# 64 mels, 10 classes) and with hidden=256, on 256 keyword-shaped clips of
+# 1 s at 16 kHz; the card against the CPU at the CPU tests' tolerances
+# (tests/test_torch_trainable.py): the loss 1e-5 relative, each gradient
+# within 1e-4 of its parameter's largest, the parameters after one Adam
+# step 1e-6 where the gradient clears the margin (|g| at least 100 times the
+# two devices' difference in it), elsewhere within 2 lr (Adam's first step
+# is close to lr·sign(g))
+TRAIN_CLIPS = 256
+TRAIN_RATE = 16000
+TRAIN_HIDDEN = 256
+TRAIN_LR = 1e-3
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_STEP_TOL = 1e-6
+TRAIN_MARGIN = 100.0
+TRAIN_STEPS = 5
+# sharding (phase 37): gloo worlds of 2 and 4 ranks on one card; the batch
+# mode over 64 x 10 s of the tone batch at 44.1 kHz in log-mel space (the
+# ranks' resampler products run at other shapes than the whole batch's,
+# which cuBLAS may sum in another order); the time mode over one 600 s
+# speech-like recording (a lecture's length: 26,460,000 samples at 44.1 kHz
+# is whole resampler blocks and whole hops on 2 and 4 ranks) at the CPU
+# tests' tolerances (tests/test_torch_parallel.py): log_mel_frontend 1e-3
+# absolute and relative, the master chain 1e-5 plus the envelope's fp32
+# bound (its log-domain ramp reaches T·|log r|, where fp32 steps by the
+# spacing there: a relative gain error of 4 spacings)
+SHARD_BATCH = 64
+SHARD_BATCH_TOL = 1e-4
+LECTURE_SAMPLES = 26_460_000
+LECTURE_TOL = 1e-3
+MASTER_LECTURE_SAMPLES = 9_600_000
+WORLD_TIMEOUT = 600.0
 
 
 def rfft_flops(n: int) -> float:
@@ -2077,6 +2134,361 @@ def analysis(dev: torch.device, card: str) -> dict:
     return out
 
 
+def _kws_clips(n: int, rate: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """``n`` keyword-shaped clips of 1 s (Speech Commands' shape) in ten
+    classes: class ``k`` a tone warbled around 200 + 150 k Hz, over noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(rate) / rate
+    y = np.arange(n) % 10
+    f0 = 200.0 + 150.0 * y + rng.uniform(-20.0, 20.0, n)
+    x = (0.3 * np.sin(2 * np.pi * (f0[:, None] + 30.0 * np.sin(2 * np.pi * 3.0 * t)) * t)
+         + 0.05 * rng.standard_normal((n, rate)))
+    return x.astype(np.float32), y.astype(np.int64)
+
+
+def _lecture(n: int, rate: int, seed: int, gain: float = 1.0) -> np.ndarray:
+    """One long speech-like recording ``[1, n]``: the phase-24 bursts and
+    silences over a -45 dBFS floor, times ``gain``."""
+    x = _speech_batch(1, n / rate + 1.0, rate, seed, floor_db=-45.0)[:, :n]
+    return np.ascontiguousarray(gain * x, dtype=np.float32)
+
+
+def _after_step_agree(got: dict, want: dict, g_want: dict, g_diff: dict, what: str) -> float:
+    """The parameters after one Adam step against a reference: within
+    TRAIN_STEP_TOL where the reference's gradient clears the margin (at least
+    TRAIN_MARGIN times ``g_diff``, the two runs' difference in it), within
+    2 lr elsewhere (Adam's first step is close to lr·sign(g); a ReLU unit
+    that no clip reaches has a zero gradient). Returns the largest
+    difference on the clear entries."""
+    worst = 0.0
+    for k, w in want.items():
+        clear = np.abs(g_want[k]) >= TRAIN_MARGIN * g_diff[k]
+        d = np.abs(got[k] - w)
+        check(d.shape == w.shape and bool((d[~clear] <= 2 * TRAIN_LR).all()),
+              f"{what}: {k} moved past 2 lr where its gradient is near zero")
+        worst = max(worst, float(d[clear].max(initial=0.0)))
+    check(worst < TRAIN_STEP_TOL, f"{what}: parameters after one step differ by {worst}")
+    return worst
+
+
+def training(dev: torch.device, card: str) -> dict:
+    """Phase 36: the trainable frontend on the card. The example's
+    assertions; at full width (the defaults, and ``hidden=256``, on 256
+    clips of 1 s) one step on the card against the same step on the CPU,
+    then ms per step, clips/s, peak memory and device launches per step,
+    with ``remat`` off and on; and ``make_train_step(mesh=...)`` over an
+    NCCL world of one rank, exactly the unsharded step."""
+    import importlib.util
+    import os
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from audioflow_torch.convert import trainable_to_numpy
+    from audioflow_torch.models import TrainableFrontend, make_train_step
+    from audioflow_torch.ops.kernels import griffinlim, melspec, timestretch, viterbi
+    from audioflow_torch.parallel import make_mesh, multihost_init
+
+    t_phase = time.perf_counter()
+    kernels = {"melspec": melspec, "timestretch": timestretch, "griffinlim": griffinlim, "viterbi": viterbi}
+    for k in kernels.values():
+        k.COUNT.launches = 0
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "train_kws_torch.py")
+    spec = importlib.util.spec_from_file_location("train_kws_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    check(example.main(60, None, "cuda") == 0, "examples/train_kws_torch.py on the card")
+
+    x_np, y_np = _kws_clips(TRAIN_CLIPS, TRAIN_RATE, SEED)
+    xd, yd = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+    out = {"heads": {}}
+    for hidden in (0, TRAIN_HIDDEN):
+        grads, losses, after = {}, {}, {}
+        for d in ("cuda", "cpu"):
+            m = TrainableFrontend(hidden=hidden, device=d, seed=SEED)
+            m.loss(xd.to(d), yd.to(d)).backward()
+            grads[d] = {k: p.grad.cpu().numpy() for k, p in m.named_parameters()}
+            m = TrainableFrontend(hidden=hidden, device=d, seed=SEED)
+            step, _ = make_train_step(m)
+            losses[d] = float(step(xd.to(d), yd.to(d)))
+            after[d] = trainable_to_numpy(m)
+        loss_d = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        check(loss_d <= TRAIN_LOSS_RTOL, f"hidden={hidden}: loss card vs CPU {loss_d}")
+        grad_d = {k: float(np.abs(grads["cuda"][k] - g).max() / np.abs(g).max()) for k, g in grads["cpu"].items()}
+        check(max(grad_d.values()) <= TRAIN_GRAD_RTOL, f"hidden={hidden}: gradients card vs CPU {grad_d}")
+        g_diff = {k: np.abs(grads["cuda"][k] - g) for k, g in grads["cpu"].items()}
+        step_d = _after_step_agree(after["cuda"], after["cpu"], grads["cpu"], g_diff, f"hidden={hidden} card vs CPU")
+        timing = {}
+        for remat in (False, True):
+            m = TrainableFrontend(hidden=hidden, remat=remat, device="cuda", seed=SEED)
+            step, _ = make_train_step(m)
+            ms = cuda_ms(lambda: step(xd, yd), TRAIN_STEPS, warmup=2)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step(xd, yd)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - held) / 1e6  # a step's own, beyond what is held
+            dev_t = device_ms(lambda: step(xd, yd), TRAIN_STEPS)
+            timing["remat" if remat else "plain"] = {
+                "ms": ms, "clips_per_s": TRAIN_CLIPS / ms * 1e3, "peak_mb": peak, "device_ms": dev_t[0],
+                "device_readings": dev_t[1], "launches_per_step": dev_t[2]}
+        out["heads"][f"hidden={hidden}"] = {"loss": losses, "grad_rel": grad_d, "step_diff": step_d,
+                                            "timing": timing}
+        print(f"phase 36 training ({card}): TrainableFrontend(hidden={hidden}) at its defaults on {TRAIN_CLIPS} x "
+              f"1 s: loss card {losses['cuda']:.6f} vs CPU {losses['cpu']:.6f}, gradients within "
+              f"{max(grad_d.values()):.2e} of each parameter's largest, one Adam step {step_d:.2e} on the entries "
+              f"that clear the margin; " + "; ".join(
+                  f"{name}: {t['ms']:.3f} ms a step (CUDA events, {TRAIN_STEPS} steps after 2), "
+                  f"{t['clips_per_s']:.0f} clips/s, a step's peak {t['peak_mb']:.0f} MB beyond what is held, "
+                  f"{t['launches_per_step']:g} device "
+                  f"launches a step, device time {t['device_ms']:.3f} ms" for name, t in timing.items()))
+
+    # the step over an NCCL world of one rank: every collective is NCCL's on
+    # the card, and the result is the unsharded step's exactly
+    check(multihost_init(num_processes=1, backend="nccl", timeout=300) is True, "an NCCL world of one rank")
+    try:
+        mesh = make_mesh(devices="cuda")
+        ma = TrainableFrontend(hidden=TRAIN_HIDDEN, device="cuda", seed=SEED)
+        mb = TrainableFrontend(hidden=TRAIN_HIDDEN, device="cuda", seed=SEED)
+        step_a, _ = make_train_step(ma, mesh=mesh)
+        step_b, _ = make_train_step(mb)
+        la, lb = float(step_a(xd, yd)), float(step_b(xd, yd))
+        pa, pb = trainable_to_numpy(ma), trainable_to_numpy(mb)
+        check(la == lb and all(np.array_equal(pa[k], pb[k]) for k in pa),
+              "the step over an NCCL world of one rank differs from the unsharded step")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step_a(xd, yd)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if "nccl" in e.key.lower()]
+        nccl = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+        nccl_calls = {e.key: e.count for e in events if e.device_type != torch.autograd.DeviceType.CUDA}
+        check(sum(nccl_calls.values()) > 0, "no NCCL collective in the step over the NCCL world")
+        nccl_ms = cuda_ms(lambda: step_a(xd, yd), TRAIN_STEPS, warmup=1)
+    finally:
+        dist.destroy_process_group()
+    launches = {name: k.COUNT.launches for name, k in kernels.items()}
+    check(not any(launches.values()), f"the training path launched {launches}: it has no kernel of the port")
+    out.update(nccl={"loss": la, "nccl_kernels": nccl, "nccl_calls": nccl_calls, "ms": nccl_ms}, launches=launches,
+               seconds=time.perf_counter() - t_phase)
+    print(f"phase 36 training ({card}): make_train_step(mesh=...) over an NCCL world of one rank equals the "
+          f"unsharded step exactly (loss {la:.6f}), NCCL calls a step {json.dumps(nccl_calls)}, {nccl} NCCL "
+          f"kernels on the card a step, {nccl_ms:.3f} ms a step; the "
+          f"example converged on the card; kernel launches on the path {launches} (none: cuFFT and matmuls)")
+    return out
+
+
+def _gloo_cuda_collectives(mesh, n: int) -> None:
+    """gloo's all-reduce and all-gather take CUDA tensors as they are: the
+    port hands them over unstaged (``parallel/_comm.py``), so a refusal or a
+    wrong value here fails the phase."""
+    from audioflow_torch.parallel import _comm
+
+    group = mesh.get_group("data")
+    t = torch.full((4,), float(mesh.get_local_rank("data") + 1), device="cuda")
+    s, g = _comm.all_reduce(t, group), _comm.all_gather(t, group)
+    check(s.is_cuda and torch.equal(s.cpu(), torch.full((4,), n * (n + 1) / 2)), f"gloo all-reduce on the card: {s}")
+    check(g.is_cuda and torch.equal(g[:, 0].cpu(), torch.arange(1.0, n + 1)), f"gloo all-gather on the card: {g}")
+
+
+def _phase37_rank(rank: int, n: int) -> dict:
+    """One rank of a gloo world on the shared card (phase 37): the batch and
+    time modes of ``compile_sharded`` and, on 4 ranks, the DP x TP step on a
+    (2, 2) mesh. Every input is made here from its seed."""
+    from audioflow_torch.convert import trainable_to_numpy
+    from audioflow_torch.models import TrainableFrontend, log_mel_frontend, make_train_step, master_chain_graph
+    from audioflow_torch.ops.kernels import melspec
+    from audioflow_torch.parallel import compile_sharded, make_mesh, mesh_device, shard_batch
+    from audioflow_torch.profiling import tone_batch
+
+    mesh = make_mesh(devices="cuda")
+    dev = mesh_device(mesh)
+    i = mesh.get_local_rank("data")
+    _gloo_cuda_collectives(mesh, n)
+    out = {}
+
+    def run(name, fn, x):
+        melspec.COUNT.launches = 0
+        y = fn(x)
+        torch.cuda.synchronize()
+        launches = melspec.COUNT.launches
+        out[name] = {"out": y.cpu().numpy(), "launches": launches, "ms": cuda_ms(lambda: fn(x), 3, warmup=1)}
+
+    g = log_mel_frontend(RATE, 16000, 1024, 256, 128)
+    run("batch", compile_sharded(g, mesh), shard_batch(tone_batch(SHARD_BATCH, SECONDS, RATE, SEED), mesh))
+    part = LECTURE_SAMPLES // n
+    lec = _lecture(LECTURE_SAMPLES, RATE, SEED + 37)[:, i * part : (i + 1) * part]
+    run("time_logmel", compile_sharded(g, mesh, shard="time"), torch.from_numpy(np.ascontiguousarray(lec)).to(dev))
+    part = MASTER_LECTURE_SAMPLES // n
+    lec = _lecture(MASTER_LECTURE_SAMPLES, 16000, SEED + 38, gain=4.0)[:, i * part : (i + 1) * part]
+    run("time_master", compile_sharded(master_chain_graph(16000), mesh, shard="time"),
+        torch.from_numpy(np.ascontiguousarray(lec)).to(dev))
+    if n == 4:
+        mesh2 = make_mesh(axes=("data", "model"), shape=(2, 2), devices="cuda")
+        model = TrainableFrontend(hidden=TRAIN_HIDDEN, device="cuda", seed=SEED)
+        step, _ = make_train_step(model, mesh=mesh2, model_axis="model")
+        x_np, y_np = _kws_clips(TRAIN_CLIPS, TRAIN_RATE, SEED)
+        xs, ys = shard_batch(x_np, mesh2), shard_batch(y_np, mesh2)
+        loss = float(step(xs, ys))
+        out["tp"] = {"loss": loss, "params": trainable_to_numpy(model),
+                     "coords": (mesh2.get_local_rank("data"), mesh2.get_local_rank("model")),
+                     "ms": cuda_ms(lambda: step(xs, ys), TRAIN_STEPS, warmup=1)}
+    return out
+
+
+def sharding(dev: torch.device, card: str) -> dict:
+    """Phase 37: gloo worlds of 2 and 4 ranks on the one card (NCCL refuses
+    two ranks on a device), each rank a process with a deadline: the batch
+    and time modes against the unsharded card run, the DP x TP step against
+    the single-process step, and ``run --sharded`` under
+    ``torch.distributed.run`` against ``run``."""
+    import os
+    import tempfile
+
+    from audioflow_torch.convert import trainable_to_numpy
+    from audioflow_torch.io import write_wav
+    from audioflow_torch.models import TrainableFrontend, log_mel_frontend, make_train_step, master_chain_graph
+    from audioflow_torch.parallel._worlds import run_world
+    from audioflow_torch.profiling import tone_batch
+
+    t_phase = time.perf_counter()
+    g = log_mel_frontend(RATE, 16000, 1024, 256, 128)
+    inputs = {
+        "batch": (g, torch.from_numpy(tone_batch(SHARD_BATCH, SECONDS, RATE, SEED)).to(dev)),
+        "time_logmel": (g, torch.from_numpy(_lecture(LECTURE_SAMPLES, RATE, SEED + 37)).to(dev)),
+        "time_master": (master_chain_graph(16000),
+                        torch.from_numpy(_lecture(MASTER_LECTURE_SAMPLES, 16000, SEED + 38, gain=4.0)).to(dev)),
+    }
+    # the unsharded runs on the card, the references and their times
+    ref = {name: gr.chain(x).cpu().numpy() for name, (gr, x) in inputs.items()}
+    one_ms = {name: cuda_ms(lambda gr=gr, x=x: gr.chain(x), 3, warmup=1) for name, (gr, x) in inputs.items()}
+    # the plain log-mel graph on the same inputs, which the melspec kernel is
+    # held to at the shapes the sharded paths give it (the fused graph is the
+    # same kernel unsharded, and so checks the sharding only)
+    plain = log_mel_frontend(RATE, 16000, 1024, 256, 128, fused=False)
+    ref_plain = {name: plain.chain(inputs[name][1]).cpu().numpy() for name in ("batch", "time_logmel")}
+    del inputs
+    # the single-process step the DP x TP step is held to, and its gradients
+    x_np, y_np = _kws_clips(TRAIN_CLIPS, TRAIN_RATE, SEED)
+    xd, yd = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+    m = TrainableFrontend(hidden=TRAIN_HIDDEN, device="cuda", seed=SEED)
+    m.loss(xd, yd).backward()
+    g_one = {k: p.grad.cpu().numpy() for k, p in m.named_parameters()}
+    m = TrainableFrontend(hidden=TRAIN_HIDDEN, device="cuda", seed=SEED)
+    step, _ = make_train_step(m)
+    loss_one, p_one = float(step(xd, yd)), trainable_to_numpy(m)
+    # the envelope's fp32 bound on the long master chain (see LECTURE_TOL's note)
+    log_r = 1.0 / (50.0 * 1e-3 * 16000)
+    env_rel = 4 * float(np.spacing(np.float32(MASTER_LECTURE_SAMPLES * log_r)))
+    master_tol = SAMPLE_TOL + env_rel * float(np.abs(ref["time_master"]).max())
+    thresh = 10 ** (-1.0 / 20)
+    out = {"worlds": {}}
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        ranks = run_world(_phase37_rank, n, timeout=WORLD_TIMEOUT)
+        world_s = time.perf_counter() - t0
+        res = {"seconds": world_s}
+        for name, axis in (("batch", 0), ("time_logmel", 1), ("time_master", 1)):
+            got = np.concatenate([r[name]["out"] for r in ranks], axis=axis)
+            want = ref[name]
+            if name == "time_logmel":  # the unsharded frames, all of them covered
+                check(got.shape[1] == LECTURE_SAMPLES * 160 // 441 // 256 and got.shape[0] == 1, f"{got.shape}")
+                got = got[:, : want.shape[1]]
+            check(got.shape == want.shape and bool(np.isfinite(got).all()), f"{n} ranks {name}: {got.shape}")
+            d = float(np.abs(got - want).max())
+            if name in ref_plain:  # the kernel at these shapes against its plain version
+                d_plain = float(np.abs(got - ref_plain[name]).max())
+                excess = float((np.abs(got - ref_plain[name]) - SLICE_TOL * np.abs(ref_plain[name])).max())
+                check(excess <= SLICE_TOL, f"{n} ranks {name} vs the plain graph: max|d| {d_plain}")
+            if name == "batch":
+                check(d <= SHARD_BATCH_TOL, f"{n} ranks batch mode vs graph.chain: {d}")
+            elif name == "time_logmel":
+                excess = float((np.abs(got - want) - LECTURE_TOL * np.abs(want)).max())
+                check(excess <= LECTURE_TOL, f"{n} ranks time mode log-mel vs the unsharded run: {d}")
+            else:
+                check(d <= master_tol, f"{n} ranks time mode master chain: {d} > {master_tol}")
+                check(float(np.abs(got).max()) <= thresh * (1 + env_rel) + SAMPLE_TOL, "limiter peak")
+            res[name] = {"max_abs_err": d, "vs_plain": d_plain if name in ref_plain else None,
+                         "ms": [r[name]["ms"] for r in ranks], "unsharded_ms": one_ms[name],
+                         "melspec_launches": [r[name]["launches"] for r in ranks]}
+        check(all(r["batch"]["launches"] == 1 and r["time_logmel"]["launches"] == 1 for r in ranks),
+              "melspec launches per rank, batch and time modes")
+        check(all(r["time_master"]["launches"] == 0 for r in ranks), "the master chain launched melspec")
+        if n == 4:
+            by = {r["tp"]["coords"]: r["tp"] for r in ranks}
+            for r in ranks:  # the replicated parameters alike on every rank
+                for k in ("mel_gain", "pcen_alpha", "pcen_delta", "pcen_r", "b2"):
+                    d_rep = float(np.abs(r["tp"]["params"][k] - by[(0, 0)]["params"][k]).max())
+                    check(d_rep <= TRAIN_STEP_TOL, f"DP x TP: {k} differs between ranks by {d_rep}")
+            for r in ranks:
+                rel = abs(r["tp"]["loss"] - loss_one) / abs(loss_one)
+                check(rel <= TRAIN_LOSS_RTOL, f"DP x TP loss {r['tp']['loss']} vs {loss_one}")
+            got = dict(by[(0, 0)]["params"])
+            for k, dim in (("w1", 1), ("b1", 0), ("w2", 0)):
+                got[k] = np.concatenate([by[(0, mi)]["params"][k] for mi in range(2)], axis=dim)
+            # the DP x TP gradients are the single step's summed in another
+            # order: a reassociation of fp32 sums, bounded by 1e-6 of each
+            # parameter's largest gradient
+            g_diff = {k: np.full(v.shape, 1e-6 * np.abs(v).max()) for k, v in g_one.items()}
+            res["tp"] = {"loss": by[(0, 0)]["loss"], "step_diff": _after_step_agree(
+                got, p_one, g_one, g_diff, "DP x TP on (2, 2) vs one process"), "ms": [r["tp"]["ms"] for r in ranks]}
+        out["worlds"][n] = res
+        print(f"phase 37 sharding ({card}): a gloo world of {n} ranks on the card in {world_s:.1f} s; gloo's "
+              f"all-reduce and all-gather took CUDA tensors as they are; "
+              + "; ".join(f"{name} max|d| {res[name]['max_abs_err']:.3e}"
+                          + (f" (vs the plain graph {res[name]['vs_plain']:.3e})" if res[name]["vs_plain"] is not None
+                             else "")
+                          + f", ms per rank {res[name]['ms']} (one "
+                          f"process, unsharded: {one_ms[name]:.3f}), melspec launches per rank "
+                          f"{res[name]['melspec_launches']}"
+                          for name in ("batch", "time_logmel", "time_master"))
+              + (f"; DP x TP (2, 2) step: loss {res['tp']['loss']:.6f} vs {loss_one:.6f}, parameters "
+                 f"{res['tp']['step_diff']:.2e} on the clear entries, ms per rank {res['tp']['ms']}" if n == 4 else ""))
+
+    # run --sharded under torch.distributed.run over phase 19's files: the
+    # ranks' halves of each 32-file batch are the unsharded run's batches of
+    # 16, at the same shapes, so exactly equal; against batches of 32 within
+    # SHARD_BATCH_TOL
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        for i, row in enumerate(tone_batch(FILES, SECONDS, RATE, SEED)):
+            write_wav(os.path.join(tmp, f"f{i:03d}.wav"), row, RATE)
+        with open(os.path.join(tmp, CORRUPT), "wb") as f:
+            f.write(b"RIFF\x24\x00\x00\x00WAVEfmt \x10\x00\x00\x00truncated")
+        write_wav(os.path.join(tmp, OFF_RATE), tone_batch(1, SECONDS, 48000, SEED + 1)[0], 48000)
+        glob = os.path.join(tmp, "*.wav")
+        lines = {}
+        for b in (16, FILE_BATCH):
+            lines[b] = run_cli(["run", "-i", glob, "-g", "logmel", "--batch-size", str(b), "-o",
+                                os.path.join(tmp, f"o{b}.npy"), "--stats", os.path.join(tmp, "s.json")])[-1]
+        root = os.path.dirname(os.path.abspath(__file__))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+               "-m", "audioflow_torch.cli", "run", "-i", glob, "-g", "logmel", "--batch-size", str(FILE_BATCH),
+               "--sharded", "--dist-backend", "gloo", "-o", os.path.join(tmp, "sharded.npy"),
+               "--stats", os.path.join(tmp, "s.json")]
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join([root, os.environ.get("PYTHONPATH", "")])}
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root, env=env, timeout=WORLD_TIMEOUT)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"run --sharded under torch.distributed.run: {proc.stderr[-2000:]}")
+        line = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1])
+        got = np.load(os.path.join(tmp, "sharded.npy"))
+        want16, want32 = np.load(os.path.join(tmp, "o16.npy")), np.load(os.path.join(tmp, f"o{FILE_BATCH}.npy"))
+        check(line["n_devices"] == 2 and line["files"] == lines[16]["files"]
+              and line["failed_files"] == lines[16]["failed_files"], f"{line} vs {lines[16]}")
+        check(got.shape == want16.shape and np.array_equal(got, want16), "run --sharded vs run --batch-size 16")
+        d32 = float(np.abs(got - want32).max())
+        check(d32 <= SHARD_BATCH_TOL, f"run --sharded vs run --batch-size {FILE_BATCH}: {d32}")
+    out["cli"] = {"line": line, "seconds": cli_s, "vs_batches_of_32": d32}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 37 run --sharded ({card}): torch.distributed.run --nproc-per-node 2 over {line['files']} files "
+          f"({line['failed_files']} failed) in {cli_s:.1f} s ({line['batches']} batches, wall "
+          f"{line['wall_seconds']:.3f} s on rank 0, {line['realtime_factor']:.0f}x realtime): exactly run "
+          f"--batch-size 16's output, and within {d32:.2e} of run --batch-size {FILE_BATCH}'s (cuBLAS sums the "
+          f"resampler's products by shape); unsharded run wall {lines[16]['wall_seconds']:.3f} s (16), "
+          f"{lines[FILE_BATCH]['wall_seconds']:.3f} s ({FILE_BATCH}); phase 37 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2597,8 +3009,13 @@ def main() -> int:
     cqt_out = cqt_rhythm(dev, card)
     ana = analysis(dev, card)
     la = ana["launches"]
+    train = training(dev, card)
+    shard = sharding(dev, card)
+    sharded_launches = {f"{n}_ranks": {mode: w[mode]["melspec_launches"] for mode in ("batch", "time_logmel")}
+                        for n, w in shard["worlds"].items()}
 
     print(json.dumps({"seconds": {"phase_34": ana["seconds"]["34"], "phase_35": ana["seconds"]["35"],
+                                  "phase_36": train["seconds"], "phase_37": shard["seconds"],
                                   "whole_run": time.perf_counter() - t_start}}))
 
     print(json.dumps({"kernels": [
@@ -2608,7 +3025,8 @@ def main() -> int:
             "launches_config5": launches5, **files, "launches_session": dict_out["launches_session"],
             "launches_dictation": dict_out["launches_dictation"], "launches_validate": lv["melspec"],
             "launches_cqt_rhythm": cqt_out["launches"]["melspec"], "launches_analysis": la["melspec"],
-            "launches_inspect": ana["launches_inspect"]["melspec"],
+            "launches_inspect": ana["launches_inspect"]["melspec"], "launches_training": train["launches"]["melspec"],
+            "launches_sharded_per_rank": sharded_launches,
             "max_abs_err": kernel_err, "ms": k_ms, "ms_readings": k_t[1], "plain_ms": p_ms,
             "bound_ms": ms_bound, "bound_by": ms_by, "library_ms": None, "path": ms_path, "cufft_ms": c_ms,
         },

@@ -92,9 +92,11 @@ def test_run_spec_from_jax_config5(tmp_path, capsys):
 
 
 def test_run_refusals(tmp_path, capsys):
-    """An unknown graph and ``--sharded`` are refused; every graph of the
-    JAX CLI builds (the four last ported ones run in
-    ``test_run_cqt_and_rhythm_graphs_match_jax_cli``)."""
+    """An unknown graph is refused; every graph of the JAX CLI builds (the
+    four last ported ones run in
+    ``test_run_cqt_and_rhythm_graphs_match_jax_cli``); ``--sharded`` on a
+    plain call runs a world of one gloo rank and writes exactly what ``run``
+    writes, whole and in batches."""
     from audioflow_torch.cli import _GRAPHS, _build_graph
     from audioflow_torch.config import UserConfig
 
@@ -106,8 +108,17 @@ def test_run_refusals(tmp_path, capsys):
     with pytest.raises(SystemExit, match="unknown graph 'nosuchgraph'"):
         _build_graph("nosuchgraph", 16000, UserConfig())
     assert len(_GRAPHS) == 18 and all(_build_graph(g, 16000, UserConfig()).nodes for g in _GRAPHS)
-    with pytest.raises(SystemExit, match="--sharded"):
-        tmain(["run", "-i", inputs, "--sharded", "--device", "cpu"])
+    import torch.distributed as dist
+
+    for extra in ([], ["--batch-size", "2"]):
+        outs = []
+        for sharded in ([], ["--sharded"]):
+            out = tmp_path / f"o{len(extra)}{len(sharded)}.npy"
+            line, arr = _run(tmain, capsys, ["-i", inputs, "-g", "logmel", *extra, *sharded, "--device", "cpu"], out)
+            assert line["n_devices"] == 1 and line["files"] == 2
+            outs.append(arr)
+        np.testing.assert_array_equal(outs[1], outs[0])
+        assert not dist.is_initialized()  # the world the call made is gone
     if not torch.cuda.is_available():  # --device defaults to the card
         capsys.readouterr()
         assert tmain(["run", "-i", inputs, "-g", "stft", "--stats", str(tmp_path / "s.json")]) == 2

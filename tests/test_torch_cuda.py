@@ -905,3 +905,51 @@ def test_first_maximum_rules_on_card(cuda_device):
     assert torch.equal(x.to(cuda_device).argmax(dim=-1).cpu(), x.argmax(dim=-1))
     assert torch.equal(x.to(cuda_device).max(dim=-1)[1].cpu(), x.max(dim=-1)[1])
     assert ((x == x.max(dim=-1, keepdim=True).values).sum(dim=-1) > 1).any()  # the case has ties
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One train step of the trainable frontend (MLP head) on the card
+    against the CPU: the loss 1e-5 relative, each gradient within 1e-4 of
+    its parameter's largest (cuFFT against the CPU's FFT, fp32 sums in
+    another order), as tests/test_torch_trainable.py holds the port to the
+    JAX package."""
+    from audioflow_torch.models import TrainableFrontend, make_train_step
+
+    rng = np.random.default_rng(0)
+    x = (0.3 * rng.standard_normal((16, 8000))).astype(np.float32)
+    y = rng.integers(0, 4, 16)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        m = TrainableFrontend(n_fft=256, hop=128, n_mels=16, n_classes=4, hidden=32, device=dev)
+        xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        m.loss(xd, yd).backward()
+        grads = {k: p.grad.cpu().numpy() for k, p in m.named_parameters()}
+        step, _ = make_train_step(TrainableFrontend(n_fft=256, hop=128, n_mels=16, n_classes=4, hidden=32,
+                                                    device=dev))
+        out[dev.type] = (float(step(xd, yd)), grads)
+    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    assert abs(lc - lp) <= 1e-5 * abs(lp)
+    for k, g in gp.items():
+        assert np.abs(gc[k] - g).max() <= 1e-4 * np.abs(g).max(), k
+
+
+def test_time_sharded_spectrogram_in_a_gloo_world_on_the_card(cuda_device, tmp_path):
+    """Two gloo ranks that share the card: the time-sharded spectrogram,
+    its halo staged through page-locked host memory, equals the unsharded
+    one on the card within 1e-5 of the peak, with one halo exchange a rank."""
+    import torch_parallel_worker as W
+
+    from audioflow_torch.ops import spectrogram
+    from audioflow_torch.parallel._worlds import run_world
+
+    x = np.random.default_rng(0).standard_normal((2, 4 * 4096)).astype(np.float32)
+    ranks = run_world(W.run_cases, 2, ({"spectrogram": {"x": x}}, "cuda"), timeout=300,
+                      workdir=str(tmp_path / "world"))
+    for r in ranks:
+        assert "error" not in r["spectrogram"], r["spectrogram"].get("error")
+        assert r["spectrogram"]["counts"] == {"batch_isend_irecv": 1}
+    got = np.concatenate([r["spectrogram"]["out"] for r in ranks], axis=1)
+    want = spectrogram(torch.from_numpy(x).to(cuda_device), 512, 256, center=False).cpu().numpy()
+    n = want.shape[1]
+    assert got.shape == (2, x.shape[1] // 256, 257)
+    assert np.abs(got[:, :n] - want).max() / want.max() < 1e-5

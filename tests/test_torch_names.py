@@ -1,11 +1,13 @@
 """The port's public names against the JAX package's.
 
-``dir()`` of ``ops``, ``graph``, ``models`` and ``utils`` in both packages,
-taken in a fresh interpreter (a test process imports submodules, such as the
-JAX package's Pallas kernels, that would add names of their own). Every
-public name of the JAX package is in the port, except exactly the names of
-the modules that ROADMAP Queue A has not ported yet: A10 (``augment``,
-``trainable``).
+``dir()`` of ``ops``, ``graph``, ``models``, ``utils`` and ``parallel`` in
+both packages, taken in a fresh interpreter (a test process imports
+submodules, such as the JAX package's Pallas kernels, that would add names
+of their own). A name counts when the package defines it: a module of a
+third party (``jax``, ``np``) or a class or function imported from one
+(``jax.sharding``'s ``Mesh``, ``typing.Sequence``) is no name of the
+package's. Every public name of the JAX package is in the port; nothing is
+left unported.
 """
 
 import json
@@ -16,22 +18,22 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-NOT_PORTED = {
-    # A10: augmentation and the trainable head
-    "ops": {"augment", "freq_mask", "spec_augment", "time_mask"},
-    "graph": set(),
-    "models": {"TrainableFrontend", "make_train_step", "trainable"},
-    "utils": set(),
-}
+SUBPACKAGES = ("ops", "graph", "models", "utils", "parallel")
+NOT_PORTED = {sub: set() for sub in SUBPACKAGES}
 
 
 def test_public_names_match_the_reference_but_the_unported():
     code = (
-        "import importlib, json\n"
+        "import importlib, inspect, json\n"
+        "def own(p, v):\n"
+        "    home = v.__name__ if inspect.ismodule(v) else getattr(v, '__module__', None)\n"
+        "    return not isinstance(home, str) or home == p or home.startswith(p + '.')\n"
         "out = {}\n"
-        "for sub in ('ops', 'graph', 'models', 'utils'):\n"
-        "    names = [sorted(n for n in dir(importlib.import_module(f'{p}.{sub}')) if not n.startswith('_'))\n"
-        "             for p in ('audioflow_tpu', 'audioflow_torch')]\n"
+        f"for sub in {SUBPACKAGES!r}:\n"
+        "    names = []\n"
+        "    for p in ('audioflow_tpu', 'audioflow_torch'):\n"
+        "        m = importlib.import_module(f'{p}.{sub}')\n"
+        "        names.append(sorted(n for n in dir(m) if not n.startswith('_') and own(p, getattr(m, n))))\n"
         "    out[sub] = names\n"
         "print(json.dumps(out))\n"
     )

@@ -73,9 +73,29 @@ def test_run_batch_masks_failed_and_off_rate_lanes(tmp_path):
 
 
 def test_run_batches_errors(tmp_path):
+    """The errors, and ``mesh=``'s working path: in a world of one gloo
+    rank the sharded runner writes exactly what the unsharded one writes
+    (a 2-D mesh is refused)."""
+    import torch.distributed as dist
+
+    from audioflow_torch import parallel
+
     g = tmodels.master_chain_graph(16000)
-    with pytest.raises(ConfigError):
-        runner.run_batches(g, BatchLoader([], 2), mesh=object(), device="cpu")
+    files = _files(tmp_path, 16000)
+    assert parallel.multihost_init(num_processes=1, backend="gloo", timeout=60) is True
+    try:
+        mesh = parallel.make_mesh(devices="cpu")
+        sharded, plain = ArraySink(), ArraySink()
+        ms = runner.run_batches(g, BatchLoader(files, 3, stride=8192), sinks=[sharded], mesh=mesh)
+        mp = runner.run_batches(g, BatchLoader(files, 3, stride=8192), sinks=[plain], device="cpu")
+        assert ms.n_devices == 1 and (ms.files, ms.failed_files, ms.batches) == (mp.files, mp.failed_files, 3)
+        assert ms.audio_seconds == mp.audio_seconds
+        np.testing.assert_array_equal(sharded.result(), plain.result())
+        with pytest.raises(ConfigError):
+            runner.run_batches(g, BatchLoader(files, 3), mesh=parallel.make_mesh(
+                axes=("data", "model"), shape=(1, 1), devices="cpu"))
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(AudioError) as e:
         runner.run_batches(g, BatchLoader([], 2), device="cpu")
     assert e.value.code.value == "FILE_NOT_FOUND"
