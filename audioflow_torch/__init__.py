@@ -9,4 +9,8 @@ CUDA kernels under ``csrc/`` that are built with ``nvcc`` at first use.
 Matmuls run in full fp32: TF32 is switched off (see ``ops/_mm.py``).
 """
 
-__version__ = "0.1.0"
+from .version import __version__
+
+__all__ = ["__version__", "ops"]
+
+from . import ops  # noqa: E402

@@ -17,11 +17,11 @@ Mirrors ``audioflow_tpu/cli.py``:
   loudness           BS.1770/R128 loudness meter (and optional normalizer)
   validate           numerics against float64 oracles, the JAX package's budgets
   inspect            cost counts of one call of a graph
+  bench              throughput benchmarks (the JAX bench's cases)
 
 Every command that computes takes ``--device`` ("cuda" unless given;
 without a card it fails with DEVICE_NOT_FOUND rather than carry on on the
-CPU). The output is the JAX CLI's JSON; every JAX subcommand but ``bench``
-is here.
+CPU). The output is the JAX CLI's JSON; every JAX subcommand is here.
 
 Usage: python -m audioflow_torch.cli <command> [options]
 """
@@ -29,6 +29,7 @@ Usage: python -m audioflow_torch.cli <command> [options]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob as _glob
 import json
 import os
@@ -240,18 +241,15 @@ def _user_config(args):
     return ConfigManager(args.config).load() if args.config else ConfigManager().current()
 
 
-def cmd_run(args) -> int:
-    """``run``; with ``--sharded``, over the world of ranks: one rank on
-    the card under a plain call, or the ranks ``torch.distributed.run``
-    starts (``--dist-backend gloo`` for ranks that share a card)."""
-    from .utils import resolve_device
-
-    device = resolve_device(args.device)
-    if not args.sharded:
-        return _run(args, device, None)
+@contextlib.contextmanager
+def _sharded_world(args, device):
+    """The world of ranks of ``--sharded``: one rank under a plain call, or
+    the ranks ``torch.distributed.run`` starts (``--dist-backend gloo`` for
+    ranks that share a card); a process group that exists already is used
+    as it is. One made here is destroyed on exit."""
     import torch.distributed as dist
 
-    from .parallel import make_mesh, multihost_init
+    from .parallel import multihost_init
 
     one = "WORLD_SIZE" not in os.environ
     created = multihost_init(
@@ -259,10 +257,23 @@ def cmd_run(args) -> int:
         backend=args.dist_backend or ("nccl" if device.type == "cuda" else "gloo"),
     )
     try:
-        return _run(args, device, make_mesh(devices=device.type))
+        yield
     finally:
         if created:
             dist.destroy_process_group()
+
+
+def cmd_run(args) -> int:
+    """``run``; with ``--sharded``, over the world of ranks."""
+    from .utils import resolve_device
+
+    device = resolve_device(args.device)
+    if not args.sharded:
+        return _run(args, device, None)
+    from .parallel import make_mesh
+
+    with _sharded_world(args, device):
+        return _run(args, device, make_mesh(devices=device.type))
 
 
 def _run(args, device, mesh) -> int:
@@ -643,6 +654,56 @@ def cmd_inspect(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """Throughput benchmarks: one JSON row per case (``all``: the JAX CLI's
+    seven), under a torch.profiler trace with ``--profile-dir`` and as a
+    markdown table with ``--report``. With ``--sharded`` the cases run over
+    the world of ranks, and rank 0 prints."""
+    from .bench import run_benchmark
+    from .obs import profile_trace
+    from .utils import resolve_device
+
+    device = resolve_device(args.device)
+    names = (
+        ["roofline", "stft", "logmel", "master", "pvoc", "streaming", "session"]
+        if args.benchmark == "all"
+        else [args.benchmark]
+    )
+    results = []
+    with _sharded_world(args, device) if args.sharded else contextlib.nullcontext():
+        import torch.distributed as dist
+
+        root = not args.sharded or dist.get_rank() == 0
+        with profile_trace(args.profile_dir):
+            for name in names:
+                r = run_benchmark(name, batch=args.batch, seconds=args.seconds, sharded=args.sharded, device=device)
+                results.append(r)
+                if root:
+                    print(json.dumps(r))
+    if not root:
+        return 0
+    if args.profile_dir:
+        _log.info("profiler trace written to %s", args.profile_dir)
+    if args.report:
+        lines = [
+            "# Benchmarks",
+            "",
+            "| config | batch | clip s | ms/iter | x realtime/chip |",
+            "|---|---|---|---|---|",
+        ]
+        for r in results:
+            if "wall_seconds" not in r:  # calibration rows (roofline)
+                continue
+            lines.append(
+                f"| {r['benchmark']} | {r['batch']} | {r['clip_seconds']} | "
+                f"{r['wall_seconds'] / max(r['batches'], 1) * 1000:.2f} | "
+                f"{r['realtime_factor_per_chip']:.0f} |"
+            )
+        with open(args.report, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return 0
+
+
 def cmd_separate(args) -> int:
     """Blind NMF source separation: one WAV per component. STFT -> NMF of
     the magnitude -> soft masks -> ISTFT (``ops.nmf_separate``); the
@@ -864,6 +925,20 @@ def main(argv: list[str] | None = None) -> int:
     ins.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
     ins.add_argument("--config")
     ins.set_defaults(fn=cmd_inspect)
+
+    b = sub.add_parser("bench", help="throughput benchmarks ('all' runs the JAX CLI's seven)")
+    b.add_argument("benchmark", nargs="?", default="logmel")
+    b.add_argument("--batch", type=int, default=0)
+    b.add_argument("--seconds", type=float, default=10.0)
+    b.add_argument("--sharded", action="store_true",
+                   help="shard the batch over the world's ranks (one rank unless started by torch.distributed.run)")
+    b.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                   help="--sharded's process-group backend (default: nccl on the card, gloo on the CPU)")
+    b.add_argument("--report", help="write a markdown table to this path")
+    b.add_argument("--profile-dir", default="",
+                   help="write a torch.profiler trace here (TensorBoard, Perfetto)")
+    b.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+    b.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     setup_logging(args.log_level)

@@ -205,17 +205,14 @@ class Graph:
         a first call builds what the graph's kernels need, and is not
         counted.
         """
-        from torch.utils.flop_counter import FlopCounterMode
-
-        from ..profiling import aten_ops
+        from ..profiling import aten_ops, count_flops
         from ..utils import resolve_device
 
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(0)
         x = (0.1 * torch.randn(tuple(input_shape), generator=gen)).to(dtype=dtype, device=dev)
         self.chain(x)
-        with FlopCounterMode(display=False) as counter:
-            self.chain(x)
+        flops = count_flops(lambda: self.chain(x))
         if dev.type == "cuda":
             from torch.profiler import ProfilerActivity, profile
 
@@ -227,7 +224,7 @@ class Graph:
         else:
             launches = aten_ops(lambda: self.chain(x))
         return {
-            "flops": float(counter.get_total_flops()),
+            "flops": flops,
             "bytes_accessed": -1.0,
             "fusions": int(launches),
             "collectives": 0,

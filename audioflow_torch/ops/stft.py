@@ -32,6 +32,9 @@ _BANK_CACHE = BoundedCache(maxsize=64)
 # the port runs every one of them as the one two-matmul form against the banks.
 IMPLS = ("matmul", "folded", "fourstep", "onedot", "radix2", "fft")
 
+# the JAX default's name for the DFT products; the port computes them in fp32
+DFT_PRECISION_DEFAULT = "high"
+
 
 def padded_window(n_fft: int, window: str, win_length: int | None = None) -> np.ndarray:
     """The periodic float64 window of ``win_length`` (default n_fft),

@@ -55,7 +55,7 @@ import torch
 
 
 def tone_batch(batch: int, seconds: float, rate: int, seed: int = 0) -> np.ndarray:
-    """A copy of ``audioflow_tpu/bench.py::_tone_batch``: random tones plus noise."""
+    """The bench's input (``audioflow_tpu/bench.py::_tone_batch``): random tones plus noise."""
     rng = np.random.default_rng(seed)
     t = np.arange(int(seconds * rate), dtype=np.float32) / rate
     freqs = rng.uniform(80, 4000, batch).astype(np.float32)
@@ -147,6 +147,18 @@ def _paths(dev):
         "streaming": streaming,
         "cqtroundtrip": cqtroundtrip,
     }
+
+
+def count_flops(fn) -> float:
+    """The floating-point operations of one call of ``fn`` that
+    ``torch.utils.flop_counter.FlopCounterMode`` counts: matmuls and
+    convolutions (elementwise work, FFTs and a hand-written kernel's work
+    are not seen)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return float(counter.get_total_flops())
 
 
 def aten_ops(fn) -> int:

@@ -35,6 +35,7 @@ import torch
 
 from ..convert import state_from_leaves, state_leaves
 from ..errors import ErrorCode, SessionError
+from ..graph import Graph  # noqa: F401  (re-exported, as in the JAX package)
 from ..obs import StatsFile, get_logger
 from ..ops import ring as _ring
 from ..sinks import EventDispatcher, Sink

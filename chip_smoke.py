@@ -12,7 +12,8 @@ cqt|cqtroundtrip|onset|beats``, tempo, the beat DP, the streaming beat
 graph), the trainable frontend's train step (one card, and an NCCL world of
 one rank), and the multi-rank paths (gloo worlds of 2 and 4 ranks on the
 card: batch and time sharding, the DP x TP step, ``run --sharded`` under
-``torch.distributed.run``), and checks them. The log-mel frontend
+``torch.distributed.run``), and the bench (``audioflow bench``), and checks
+them. The log-mel frontend
 ``log_mel_frontend(44100, 16000, 1024, 256, 128, center=False)`` streamed in
 14,112-sample chunks over a 512 x 10 s tone batch (kernel ``melspec``);
 BASELINE config 4, time-stretch and pitch-shift, offline through
@@ -225,13 +226,26 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
     all-gather checked on values with CUDA tensors; on 4 ranks the DP x TP step on a (2, 2) mesh against the
     single-process step; ``run --sharded`` under ``torch.distributed.run``
     with 2 ranks over phase 19's files, exactly ``run --batch-size 16``'s
-    output (the ranks' halves of each batch of 32).
+    output (the ranks' halves of each batch of 32);
+38. the bench: ``audioflow bench all --report --profile-dir`` in the
+    process: exit 0, seven rows, each with the keys of the JAX package's
+    row (listed here), every realtime factor finite and positive, the
+    report's six table rows, and a torch.profiler trace whose kernel events
+    name the melspec and timestretch kernels; the kernels' launches counted
+    from 0 around ``run_benchmark`` for ``logmel_stream``, ``logmel``,
+    ``pvoc``, ``pitch``, ``session``, ``master`` and ``stft``, each equal to the count
+    worked out from its chunking and its calls (warm-up and the flop
+    counter's call included; griffinlim and viterbi 0); config 2's chunked
+    ``compile()`` (256 x 10 s, the melspec kernel) against the plain graph
+    on the same input; ``bench streaming --sharded`` in an NCCL world of one
+    rank and a gloo world of 2 ranks on the card; each untraced row printed
+    beside PERF.md section 5's row of the same path.
 
 Every device time (phases 3, 6, 9, 12) is the median of three readings
 under torch.profiler, printed with the readings and the device events per
 call; a kernel's reading sums the mean time per launch of each kernel it
 runs once a call, which events the profiler drops or repeats do not bias. Then a JSON line of the seconds of
-phases 34 to 37 and of the whole run, one JSON line of per-kernel numbers (with ``path`` and ``cufft_ms``
+phases 34 to 38 and of the whole run, one JSON line of per-kernel numbers (with ``path`` and ``cufft_ms``
 for the three kernels built on the shared-memory FFT, ``cluster`` for
 viterbi), and last
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a card, or
@@ -432,6 +446,35 @@ LECTURE_SAMPLES = 26_460_000
 LECTURE_TOL = 1e-3
 MASTER_LECTURE_SAMPLES = 9_600_000
 WORLD_TIMEOUT = 600.0
+# the bench (phase 38): `audioflow bench all`'s seven rows and the rows of
+# logmel_stream and pitch, each with the keys of the JAX package's row on the CPU (tests/test_torch_bench.py holds
+# the port's rows to those; this machine has no JAX), without achieved_gbps,
+# which the port leaves out with no byte count; pvoc's call is the
+# timestretch kernel, in which the flop counter sees no product, so its row
+# has no cost columns
+BENCH_ALL = ("roofline", "stft", "logmel", "master", "pvoc", "streaming", "session")
+BENCH_RUN_KEYS = ("audio_seconds", "wall_seconds", "batches", "files", "failed_files", "compile_seconds",
+                  "n_devices", "realtime_factor", "realtime_factor_per_chip", "benchmark", "batch", "clip_seconds")
+BENCH_COST_KEYS = ("flops", "bytes_accessed", "achieved_tflops")
+BENCH_KEYS = {
+    "roofline": ("benchmark", "hbm_gbps", "mxu_tflops_bf16", "triad_ms", "matmul_ms", "compile_seconds"),
+    "stft": BENCH_RUN_KEYS + BENCH_COST_KEYS, "logmel": BENCH_RUN_KEYS + BENCH_COST_KEYS,
+    "master": BENCH_RUN_KEYS + BENCH_COST_KEYS, "streaming": BENCH_RUN_KEYS + BENCH_COST_KEYS,
+    "logmel_stream": BENCH_RUN_KEYS + BENCH_COST_KEYS, "pitch": BENCH_RUN_KEYS + BENCH_COST_KEYS,
+    "pvoc": BENCH_RUN_KEYS,
+    "session": BENCH_RUN_KEYS + ("latency_ms_p50", "latency_ms_p99", "latency_x_realtime_p50"),
+}
+BENCH_REPORT_HEAD = ["# Benchmarks", "", "| config | batch | clip s | ms/iter | x realtime/chip |", "|---|---|---|---|---|"]
+# a measured case's calls: 2 warm-up and 10 timed (measure_throughput), one under the flop counter
+BENCH_CALLS = 13
+# the card's published dense peaks beside the roofline row (H100 SXM data sheet)
+BF16_FLOPS = 989e12
+# PERF.md section 5's row of the same path and shape (NVIDIA H100 80GB HBM3, 700.00 W)
+BENCH_PERF5 = {
+    "logmel_stream": "logmel, kernel: 20.725 ms", "pvoc": "pvoc, kernel: 1.247 ms",
+    "pitch": "pitch, kernel: 2.242 ms", "streaming": "streaming, plain: 34.395-38.903 ms",
+    "master": "master, compile(): 19.448 ms", "session": "session, per-chunk pushes: 9,756-11,945 audio-s/s",
+}
 
 
 def rfft_flops(n: int) -> float:
@@ -2489,6 +2532,143 @@ def sharding(dev: torch.device, card: str) -> dict:
     return out
 
 
+def _phase38_rank(rank: int, n: int) -> list:
+    """One rank of phase 38's gloo world on the shared card: ``audioflow
+    bench streaming --sharded``, its JSON rows (rank 0 prints them)."""
+    return run_cli(["bench", "streaming", "--sharded"])
+
+
+def _bench_line(row: dict) -> str:
+    ms = row["wall_seconds"] / max(row["batches"], 1) * 1e3
+    return f"{ms:.3f} ms/iter, {row['realtime_factor_per_chip']:.0f} audio-s/s per card"
+
+
+def bench(dev: torch.device, card: str) -> dict:
+    """Phase 38: ``audioflow bench all`` in the process under its profiler
+    trace and report, the launches of the bench's kernel paths counted from
+    0 around ``run_benchmark``, config 2's chunked log-mel (a shape no other
+    phase gives the melspec kernel) against the plain graph, and ``bench
+    streaming --sharded`` in an NCCL world of one rank and a gloo world of 2
+    ranks. Returns the launches and the seconds."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from audioflow_torch import bench as bench_mod
+    from audioflow_torch.models import log_mel_frontend
+    from audioflow_torch.ops.kernels import griffinlim, melspec, timestretch, viterbi
+    from audioflow_torch.parallel._worlds import run_world
+
+    t_phase = time.perf_counter()
+    kernels = {"melspec": melspec, "timestretch": timestretch, "griffinlim": griffinlim, "viterbi": viterbi}
+
+    def counts():
+        return {k: m.COUNT.launches for k, m in kernels.items()}
+
+    # the launches each path should make: BENCH_CALLS calls of one stream
+    # over whole chunks (logmel_stream), of compile()'s chunked form
+    # (logmel: as many chunks as the offline frames need), one kernel call
+    # (pvoc, pitch); the session's open steps one chunk and a block of each
+    # drain bucket, then every chunk four times (a warm and a timed pass,
+    # three latency passes)
+    g = log_mel_frontend(RATE, 16000, 1024, 256, 128)
+    chunk = bench_mod._chunk(g)
+    t = int(SECONDS * RATE)
+    n_out = g.chain(torch.empty((1, t), device="meta")).shape[-2]
+    chunks2 = max(-(-t // chunk), -(-(g.stream_latency(chunk) + n_out) // g.chunk_lens(chunk)[-1]))
+    opened = 1 + sum(b for b in (8, 4, 2) if b * chunk <= 4 * chunk + 1)
+    want = {"logmel_stream": {"melspec": BENCH_CALLS * (t // chunk)}, "logmel": {"melspec": BENCH_CALLS * chunks2},
+            "pvoc": {"timestretch": BENCH_CALLS}, "pitch": {"timestretch": BENCH_CALLS},
+            "session": {"melspec": opened + 4 * (t // chunk)}, "master": {}, "stft": {}}
+    want = {name: {k: w.get(k, 0) for k in kernels} for name, w in want.items()}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        report, prof_dir = os.path.join(tmp, "bench.md"), os.path.join(tmp, "trace")
+        for m in kernels.values():
+            m.COUNT.launches = 0
+        t0 = time.perf_counter()
+        rows = run_cli(["bench", "all", "--report", report, "--profile-dir", prof_dir])
+        torch.cuda.synchronize()
+        all_s, all_launches = time.perf_counter() - t0, counts()
+        check([r.get("benchmark") for r in rows] == list(BENCH_ALL), f"bench all rows {rows}")
+        for r in rows:
+            check(sorted(r) == sorted(BENCH_KEYS[r["benchmark"]]), f"bench {r['benchmark']} keys {sorted(r)}")
+            if r["benchmark"] != "roofline":
+                v = r["realtime_factor_per_chip"]
+                check(math.isfinite(v) and v > 0, f"bench {r['benchmark']} realtime factor {v}")
+        all_want = {k: want["logmel"][k] + want["session"][k] + want["pvoc"][k] for k in kernels}
+        check(all_launches == all_want, f"bench all launches {all_launches} != {all_want}")
+        with open(report) as f:
+            lines = f.read().splitlines()
+        check(lines[:4] == BENCH_REPORT_HEAD and [ln.split(" | ")[0] for ln in lines[4:]]
+              == [f"| {n}" for n in BENCH_ALL[1:]], f"bench report {lines}")
+        traces = [os.path.join(prof_dir, f) for f in os.listdir(prof_dir) if f.endswith(".pt.trace.json")]
+        check(len(traces) == 1, f"profile dir holds {os.listdir(prof_dir)}")
+        trace_mb = os.path.getsize(traces[0]) / 1e6
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+        n_kernel_events = sum(1 for e in events if e.get("cat") == "kernel")
+        check(any("melspec_fft_kernel" in k for k in names), "the trace names no melspec kernel")
+        check(any("fft_analysis_kernel" in k for k in names) and any("phase_kernel" in k for k in names),
+              "the trace names no timestretch kernel")
+        del events
+    roof = rows[0]
+    print(f"phase 38 bench all ({card}): exit 0, {len(rows)} rows with the JAX rows' keys, the report's "
+          f"{len(lines) - 4} table rows, a {trace_mb:.1f} MB trace ({n_kernel_events} kernel events; melspec and "
+          f"timestretch named), in {all_s:.1f} s; launches {json.dumps(all_launches)} = logmel + session + pvoc; "
+          f"roofline {roof['hbm_gbps']} GB/s of {HBM_BYTES_S / 1e9:.0f}, {roof['mxu_tflops_bf16']} bf16 TFLOP/s "
+          f"of {BF16_FLOPS / 1e12:.0f} (triad {roof['triad_ms']} ms, matmul {roof['matmul_ms']} ms); traced rows: "
+          + "; ".join(f"{r['benchmark']} {_bench_line(r)}" for r in rows[1:]))
+
+    # untraced, launches counted from 0 around each run_benchmark
+    counted = {}
+    for name in want:
+        for m in kernels.values():
+            m.COUNT.launches = 0
+        row = bench_mod.run_benchmark(name)
+        torch.cuda.synchronize()
+        counted[name] = {"row": row, "launches": counts()}
+        check(counted[name]["launches"] == want[name], f"bench {name} launches {counted[name]['launches']} "
+              f"!= {want[name]}")
+        check(sorted(row) == sorted(BENCH_KEYS[name]), f"bench {name} keys {sorted(row)}")
+
+    # config 2 at its full shape: compile()'s chunked form through the
+    # melspec kernel against the plain two-node graph on the same input
+    fn, x, _ = bench_mod._case("logmel")
+    xt = torch.from_numpy(x).to(dev)
+    got = fn.compile()(xt)
+    plain = log_mel_frontend(RATE, 16000, 1024, 256, 128, fused=False).compile()(xt)
+    err2 = (got - plain).abs().max().item()
+    check(got.shape == plain.shape and bool(torch.isfinite(got).all()), f"config 2 {tuple(got.shape)}")
+    check(err2 <= SLICE_TOL, f"config 2 kernel vs plain graph max|d| {err2} > {SLICE_TOL}")
+    del xt, got, plain
+
+    # bench streaming --sharded: a world of one NCCL rank in this process, then
+    # a gloo world of 2 ranks on the card, whose rank 0 prints
+    one = run_cli(["bench", "streaming", "--sharded"])
+    check(len(one) == 1 and one[0]["n_devices"] == 1 and not dist.is_initialized(), f"sharded bench {one}")
+    t0 = time.perf_counter()
+    two = run_world(_phase38_rank, 2, timeout=WORLD_TIMEOUT)
+    world_s = time.perf_counter() - t0
+    check(len(two[0]) == 1 and two[1] == [] and two[0][0]["n_devices"] == 2, f"sharded bench, 2 ranks: {two}")
+    for name, c in counted.items():
+        print(f"phase 38 bench {name} ({card}): {_bench_line(c['row'])}, launches {json.dumps(c['launches'])} "
+              f"(want {json.dumps(want[name])}); PERF.md section 5: {BENCH_PERF5.get(name, 'none')}")
+    print(f"phase 38 bench streaming --sharded ({card}): NCCL, 1 rank: {_bench_line(one[0])}; gloo, 2 ranks on "
+          f"the card: {_bench_line(two[0][0])} (world {world_s:.1f} s); PERF.md section 5: {BENCH_PERF5['streaming']}")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 38 config 2 ({card}): log_mel_frontend(...).compile() on {tuple(x.shape)}, {chunks2} chunks a "
+          f"call through the melspec kernel, vs the plain graph: max|d| {err2:.3e} (tol {SLICE_TOL}); the shapes of "
+          f"logmel_stream (phase 3), pvoc and pitch (phase 6) and session (phase 23) are held there; phase 38 took "
+          f"{seconds:.1f} s")
+    return {"seconds": seconds,
+            "launches": {k: {name: c["launches"][k] for name, c in counted.items() if c["launches"][k]}
+                         for k in kernels},
+            "launches_all": all_launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3013,9 +3193,11 @@ def main() -> int:
     shard = sharding(dev, card)
     sharded_launches = {f"{n}_ranks": {mode: w[mode]["melspec_launches"] for mode in ("batch", "time_logmel")}
                         for n, w in shard["worlds"].items()}
+    bench_out = bench(dev, card)
 
     print(json.dumps({"seconds": {"phase_34": ana["seconds"]["34"], "phase_35": ana["seconds"]["35"],
                                   "phase_36": train["seconds"], "phase_37": shard["seconds"],
+                                  "phase_38": bench_out["seconds"],
                                   "whole_run": time.perf_counter() - t_start}}))
 
     print(json.dumps({"kernels": [
@@ -3026,7 +3208,8 @@ def main() -> int:
             "launches_dictation": dict_out["launches_dictation"], "launches_validate": lv["melspec"],
             "launches_cqt_rhythm": cqt_out["launches"]["melspec"], "launches_analysis": la["melspec"],
             "launches_inspect": ana["launches_inspect"]["melspec"], "launches_training": train["launches"]["melspec"],
-            "launches_sharded_per_rank": sharded_launches,
+            "launches_sharded_per_rank": sharded_launches, "launches_bench": bench_out["launches"]["melspec"],
+            "launches_bench_all": bench_out["launches_all"]["melspec"],
             "max_abs_err": kernel_err, "ms": k_ms, "ms_readings": k_t[1], "plain_ms": p_ms,
             "bound_ms": ms_bound, "bound_by": ms_by, "library_ms": None, "path": ms_path, "cufft_ms": c_ms,
         },
@@ -3034,7 +3217,8 @@ def main() -> int:
             "name": "timestretch", "route": "cuda", "source": "audioflow_torch/csrc/timestretch.cu",
             "replaces": "audioflow_tpu/ops/pallas/timestretch.py:358", "launches": ts_launches,
             "launches_validate": lv["timestretch"], "launches_cqt_rhythm": cqt_out["launches"]["timestretch"],
-            "launches_analysis": la["timestretch"],
+            "launches_analysis": la["timestretch"], "launches_bench": bench_out["launches"]["timestretch"],
+            "launches_bench_all": bench_out["launches_all"]["timestretch"],
             "max_abs_err": ts_err, "ms": ts_ms, "ms_readings": ts_t[1], "plain_ms": tp_ms,
             "bound_ms": ts_bound, "bound_by": ts_by, "library_ms": None, "path": ts_path, "cufft_ms": tc_ms,
         },

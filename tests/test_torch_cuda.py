@@ -953,3 +953,24 @@ def test_time_sharded_spectrogram_in_a_gloo_world_on_the_card(cuda_device, tmp_p
     n = want.shape[1]
     assert got.shape == (2, x.shape[1] // 256, 257)
     assert np.abs(got[:, :n] - want).max() / want.max() < 1e-5
+
+
+def test_bench_pvoc_on_card_runs_the_timestretch_kernel(cuda_device, tmp_path):
+    """``run_benchmark("pvoc")`` on the card: a finite row that counts the
+    JAX keys' throughput, its calls through the timestretch kernel (2
+    warm-up, 10 timed and 1 under the flop counter), whose kernels the trace
+    of ``profile_trace`` names."""
+    import json
+
+    from audioflow_torch.bench import run_benchmark
+    from audioflow_torch.obs import profile_trace
+
+    before = timestretch.COUNT.launches
+    with profile_trace(str(tmp_path)):
+        row = run_benchmark("pvoc", batch=4, seconds=1.0)
+    assert timestretch.COUNT.launches - before == 13
+    assert row["benchmark"] == "pvoc" and row["batch"] == 4 and row["audio_seconds"] == 40.0
+    assert all(np.isfinite(row[k]) and row[k] > 0 for k in ("wall_seconds", "realtime_factor_per_chip"))
+    (trace,) = tmp_path.glob("*.pt.trace.json")
+    names = {e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"] if e.get("cat") == "kernel"}
+    assert any("fft_analysis_kernel" in n for n in names) and any("phase_kernel" in n for n in names), names

@@ -1,7 +1,11 @@
 """The port's public names against the JAX package's.
 
-``dir()`` of ``ops``, ``graph``, ``models``, ``utils`` and ``parallel`` in
-both packages, taken in a fresh interpreter (a test process imports
+``dir()`` of the root package, of ``ops``, ``graph``, ``models``,
+``utils``, ``parallel``, ``obs``, ``io``, ``sinks``, ``session`` and
+``config``, and of the modules ``cli``, ``runner``, ``validate``,
+``errors``, ``bench``, ``version``, ``obs.profiling`` and ``ops.stft`` (for
+``DFT_PRECISION_DEFAULT``) in both packages, taken in a fresh interpreter,
+the root first (a test process imports
 submodules, such as the JAX package's Pallas kernels, that would add names
 of their own). A name counts when the package defines it: a module of a
 third party (``jax``, ``np``) or a class or function imported from one
@@ -10,6 +14,7 @@ package's. Every public name of the JAX package is in the port; nothing is
 left unported.
 """
 
+import importlib
 import json
 import os
 import subprocess
@@ -18,7 +23,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-SUBPACKAGES = ("ops", "graph", "models", "utils", "parallel")
+SUBPACKAGES = ("", "ops", "graph", "models", "utils", "parallel", "obs", "io", "sinks", "session", "config", "cli",
+               "runner", "validate", "errors", "bench", "version", "obs.profiling", "ops.stft")
 NOT_PORTED = {sub: set() for sub in SUBPACKAGES}
 
 
@@ -32,7 +38,7 @@ def test_public_names_match_the_reference_but_the_unported():
         f"for sub in {SUBPACKAGES!r}:\n"
         "    names = []\n"
         "    for p in ('audioflow_tpu', 'audioflow_torch'):\n"
-        "        m = importlib.import_module(f'{p}.{sub}')\n"
+        "        m = importlib.import_module(f'{p}.{sub}' if sub else p)\n"
         "        names.append(sorted(n for n in dir(m) if not n.startswith('_') and own(p, getattr(m, n))))\n"
         "    out[sub] = names\n"
         "print(json.dumps(out))\n"
@@ -48,7 +54,8 @@ def test_public_names_match_the_reference_but_the_unported():
 
 
 def test_reexported_names_compute_the_reference():
-    """The names the port had under another path (ROADMAP C5): the
+    """The names the port had under another path (ROADMAP C5), and the
+    version and ``ops.stft.DFT_PRECISION_DEFAULT`` equal: the
     resampler's plan API equal to ``ops.resample`` within the slice's 1e-5,
     the precision names reported back while every product stays fp32,
     ``log_mel_fused`` within the log-mel slice's 5e-4 of the JAX package's,
@@ -82,6 +89,9 @@ def test_reexported_names_compute_the_reference():
     else:
         raise AssertionError("an unknown precision name was accepted")
     assert tops.ACF_PRECISION_DEFAULT == jops.ACF_PRECISION_DEFAULT
+    jstft, tstft = (importlib.import_module(f"{p}.ops.stft") for p in ("audioflow_tpu", "audioflow_torch"))
+    assert tstft.DFT_PRECISION_DEFAULT == jstft.DFT_PRECISION_DEFAULT
+    assert importlib.import_module("audioflow_torch").__version__ == importlib.import_module("audioflow_tpu").__version__
     fb = jops.mel_filterbank(513, 64, 16000)
     for center, log_base in ((False, "ln"), (True, "db"), (False, None)):
         got = tops.log_mel_fused(torch.from_numpy(x), fb, center=center, log_base=log_base).numpy()

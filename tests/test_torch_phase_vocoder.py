@@ -325,7 +325,8 @@ def test_port_imports_no_jax():
     every module of the port in a fresh interpreter loads neither."""
     files = [*sorted((ROOT / "audioflow_torch").rglob("*.py")), ROOT / "chip_smoke.py", ROOT / "tests" / "ws_loopback.py",
              ROOT / "tests" / "decision_margins.py", *sorted((ROOT / "examples").glob("*_torch.py"))]
-    assert {"cqt.py", "rhythm.py", "lpc.py", "segment.py", "streaming_session_torch.py"} <= {p.name for p in files}
+    assert {"cqt.py", "rhythm.py", "lpc.py", "segment.py", "streaming_session_torch.py", "bench.py",
+            "version.py"} <= {p.name for p in files}
     for path in files:
         bad = [m for m in _imports(path) if m.split(".")[0] in ("jax", "jaxlib", "audioflow_tpu")]
         assert not bad, (path, bad)
@@ -337,7 +338,8 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in set(sys.modules) - base if m.split('.')[0] in ('jax', 'jaxlib', 'audioflow_tpu'))\n"
         "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n"
+        "need = {'audioflow_torch.bench', 'audioflow_torch.obs.profiling', 'audioflow_torch.version'}\n"
+        "sys.exit(1 if bad or len(names) < 20 or not need <= set(names) else 0)\n"
     )
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")])}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,

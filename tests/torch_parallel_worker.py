@@ -7,6 +7,9 @@ rank's shard of its input, and returns the rank's output with the
 collectives it made, counted by wrapping ``torch.distributed``'s functions
 in this process. A case that raises records its error instead of ending the
 world; the test that reads it fails.
+
+``bench_cli(rank, n, argv)`` runs ``audioflow <argv>`` on each rank and
+returns its exit code and the lines it printed.
 """
 
 from __future__ import annotations
@@ -185,3 +188,16 @@ def run_cases(rank: int, n: int, cases: dict, device: str = "cpu") -> dict:
         except Exception:
             out[name] = {"error": traceback.format_exc()}
     return out
+
+
+def bench_cli(rank: int, n: int, argv: list) -> tuple:
+    """``audioflow <argv>`` in this rank's process: (exit code, stdout lines)."""
+    import contextlib
+    import io
+
+    from audioflow_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue().splitlines()
