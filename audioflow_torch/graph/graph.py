@@ -18,6 +18,11 @@ Streamed output equals offline output shifted by ``stream_latency``: the
 delay alignment (``_delays``), the warmup zeroing (``_warmups``) and the
 nodes' two hooks into it (``wants_first_index``, ``warmup_passthrough``) are
 ported line for line.
+
+A ``scan_stream`` pass, its ``init_state``, each step, each node's step,
+the warmup zeroing and delay alignment around it (``graph.align``) and the
+output concat are spans of :mod:`audioflow_torch.obs.trace` (``graph.*``,
+``node.<Type>``): one flag check each while tracing is off.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Callable
 import torch
 
 from ..errors import AudioError, ConfigError, ErrorCode
+from ..obs import trace
 from ..ops.stft import pad_center
 from ..utils import as_tensor
 from .nodes import Node, Spectrogram
@@ -330,33 +336,35 @@ class Graph:
         meta tensors, so nothing is computed. ``k`` is the int chunk counter.
         """
         self._check_streamable()
-        lens = self.chunk_lens(chunk_in)
-        delays = self._delays(chunk_in)
+        with trace.span("graph.init_state", device):
+            lens = self.chunk_lens(chunk_in)
+            delays = self._delays(chunk_in)
 
-        def carries_on(dev):
-            out, n = [], chunk_in
-            for node in self.nodes:
-                out.append(node.init_carry(lead_shape, n, dtype, dev))
-                n = node.out_len(n)
-            return out
+            def carries_on(dev):
+                out, n = [], chunk_in
+                for node in self.nodes:
+                    out.append(node.init_carry(lead_shape, n, dtype, dev))
+                    n = node.out_len(n)
+                return out
 
-        # shape pass: per-node step outputs over meta tensors
-        x = torch.empty((*lead_shape, chunk_in), dtype=dtype, device="meta")
-        out_specs = []
-        for node, carry in zip(self.nodes, carries_on("meta")):
-            _, x = node.step(carry, x)
-            out_specs.append(x)
-        pendings = []
-        for i, node in enumerate(self.nodes):
-            pad = delays[i] - node.latency(lens[i])
-            if pad == 0:
-                pendings.append(None)
-                continue
-            spec = out_specs[i]
-            shape = list(spec.shape)
-            shape[self._stream_axis(node) % len(shape)] = pad
-            pendings.append(torch.zeros(shape, dtype=spec.dtype, device=device))
-        return carries_on(device), pendings, 0
+            # shape pass: per-node step outputs over meta tensors
+            with trace.first("graph.shape_pass"):
+                x = torch.empty((*lead_shape, chunk_in), dtype=dtype, device="meta")
+                out_specs = []
+                for node, carry in zip(self.nodes, carries_on("meta")):
+                    _, x = node.step(carry, x)
+                    out_specs.append(x)
+            pendings = []
+            for i, node in enumerate(self.nodes):
+                pad = delays[i] - node.latency(lens[i])
+                if pad == 0:
+                    pendings.append(None)
+                    continue
+                spec = out_specs[i]
+                shape = list(spec.shape)
+                shape[self._stream_axis(node) % len(shape)] = pad
+                pendings.append(torch.zeros(shape, dtype=spec.dtype, device=device))
+            return carries_on(device), pendings, 0
 
     def stream_step(self, state, chunk: torch.Tensor):
         """One fixed-shape streaming step through every node.
@@ -369,31 +377,38 @@ class Graph:
         the chunk-relative position of its first real sample.
         """
         carries, pendings, k = state
-        lens = self.chunk_lens(chunk.shape[-1])
-        warmups = self._warmups(chunk.shape[-1])
-        new_carries, new_pendings = [], []
-        x = chunk
-        domain = "samples"
-        for i, (node, carry, pending) in enumerate(zip(self.nodes, carries, pendings)):
-            n_zero = min(lens[i], warmups[i] - k * lens[i])
-            if n_zero > 0 and not node.warmup_passthrough:
-                axis = (-2 if domain == "frames" else -1) % x.ndim
-                x = x.clone()
-                x.narrow(axis, 0, n_zero).zero_()
-            if node.domain_out != "any":
-                domain = node.domain_out
-            if node.wants_first_index:
-                carry, x = node.step(carry, x, first_index=warmups[i] - k * lens[i])
-            else:
-                carry, x = node.step(carry, x)
-            if pending is not None:
-                axis = self._stream_axis(node) % x.ndim
-                n_out = x.shape[axis]
-                buf = torch.cat([pending, x], dim=axis)
-                x = buf.narrow(axis, 0, n_out)
-                pending = buf.narrow(axis, n_out, buf.shape[axis] - n_out)
-            new_carries.append(carry)
-            new_pendings.append(pending)
+        # the step launches nothing outside its nodes' spans and its
+        # alignment's, so it takes its device interval from theirs and
+        # records no events of its own
+        with trace.span("graph.stream_step", index=k):
+            lens = self.chunk_lens(chunk.shape[-1])
+            warmups = self._warmups(chunk.shape[-1])
+            new_carries, new_pendings = [], []
+            x = chunk
+            domain = "samples"
+            for i, (node, carry, pending) in enumerate(zip(self.nodes, carries, pendings)):
+                n_zero = min(lens[i], warmups[i] - k * lens[i])
+                if n_zero > 0 and not node.warmup_passthrough:
+                    with trace.span("graph.align", x, i):
+                        axis = (-2 if domain == "frames" else -1) % x.ndim
+                        x = x.clone()
+                        x.narrow(axis, 0, n_zero).zero_()
+                if node.domain_out != "any":
+                    domain = node.domain_out
+                with trace.span(node.trace_name, x, i):
+                    if node.wants_first_index:
+                        carry, x = node.step(carry, x, first_index=warmups[i] - k * lens[i])
+                    else:
+                        carry, x = node.step(carry, x)
+                if pending is not None:
+                    with trace.span("graph.align", x, i):
+                        axis = self._stream_axis(node) % x.ndim
+                        n_out = x.shape[axis]
+                        buf = torch.cat([pending, x], dim=axis)
+                        x = buf.narrow(axis, 0, n_out)
+                        pending = buf.narrow(axis, n_out, buf.shape[axis] - n_out)
+                new_carries.append(carry)
+                new_pendings.append(pending)
         return (new_carries, new_pendings, k + 1), x
 
     def scan_stream(self, x, chunk_in: int, device=None) -> torch.Tensor:
@@ -411,14 +426,16 @@ class Graph:
                 f"signal length {t} not a multiple of chunk_in {chunk_in}; pad first",
                 code=ErrorCode.SHAPE_MISMATCH,
             )
-        state = self.init_state(chunk_in, x.shape[:-1], x.dtype, x.device)
-        outs = []
-        for c in range(t // chunk_in):
-            state, out = self.stream_step(state, x[..., c * chunk_in : (c + 1) * chunk_in])
-            outs.append(out)
-        # the streamed axis follows the lead axes, whatever the domain (a
-        # Vad's states are [..., n_frames])
-        return torch.cat(outs, dim=x.ndim - 1)
+        with trace.span("graph.scan_stream", x):
+            state = self.init_state(chunk_in, x.shape[:-1], x.dtype, x.device)
+            outs = []
+            for c in range(t // chunk_in):
+                state, out = self.stream_step(state, x[..., c * chunk_in : (c + 1) * chunk_in])
+                outs.append(out)
+            # the streamed axis follows the lead axes, whatever the domain (a
+            # Vad's states are [..., n_frames])
+            with trace.span("graph.concat", x):
+                return torch.cat(outs, dim=x.ndim - 1)
 
     def compile_stream(self, donate: bool = True) -> Callable:
         """``step(state, chunk) -> (state, out)``: :meth:`stream_step`.

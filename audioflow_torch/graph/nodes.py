@@ -77,6 +77,12 @@ def node_registry() -> dict[str, type]:
 class Node:
     """Base node. Subclasses override the class attrs + methods they need."""
 
+    trace_name = "node.Node"  # the span of its step in Graph.stream_step (obs.trace)
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        cls.trace_name = f"node.{cls.__name__}"
+
     domain_in = "samples"
     domain_out = "samples"
     streamable = True

@@ -6,7 +6,9 @@ header, so ``nvcc`` builds it in seconds into a shared library under
 ``build/audioflow_torch/`` at the root of the checkout. The library's file
 name carries a digest of the source, the shared headers (``csrc/*.cuh``) and
 the flags, so an edited source is never served by an old build. Nothing is built or imported when this module is
-imported.
+imported. Each source's nvcc run and library load is timed once per process
+in ``obs.trace``'s one-time table (``kernels.build.<name>``,
+``kernels.load.<name>``).
 """
 
 from __future__ import annotations
@@ -17,10 +19,11 @@ import os
 import shutil
 import subprocess
 import threading
-import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from ...errors import AudioError, ErrorCode
+from ...obs import trace
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "audioflow_torch"
@@ -33,7 +36,6 @@ NVCC_FLAGS = (
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 BUILD_LOG: dict[str, str] = {}  # name -> nvcc's output of this process's build
-BUILD_SECONDS: dict[str, float] = {}  # name -> seconds this process spent building
 
 
 def _nvcc() -> str:
@@ -60,29 +62,40 @@ def _library(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _nvcc_run(nvcc: str, name: str, tmp: Path) -> None:
+    """One source's nvcc run into ``tmp``, its output kept in ``BUILD_LOG``;
+    its seconds are recorded only where it succeeds, so a retry after a
+    failed build is timed."""
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    with trace.first(f"kernels.build.{name}"):
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        BUILD_LOG[name] = proc.stdout
+        if proc.returncode != 0:
+            raise AudioError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{proc.stdout}",
+                             code=ErrorCode.KERNEL_COMPILATION_FAILED)
+
+
 def _compile(names) -> None:
     """Build the libraries of ``names`` that are not on disk yet, one nvcc per
-    source, all started together; the caller holds ``_LOCK``."""
+    source, all started together (a thread waits on each, so each is timed
+    on its own); the caller holds ``_LOCK``."""
     todo = {name: _library(name) for name in dict.fromkeys(names)}
     todo = {name: so for name, so in todo.items() if not so.exists()}
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    t0 = time.perf_counter()
-    procs = {}
-    for name, so in todo.items():
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+    tmps = {name: so.with_name(f"{so.name}.{os.getpid()}.tmp") for name, so in todo.items()}
+    with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+        runs = {name: pool.submit(_nvcc_run, nvcc, name, tmp) for name, tmp in tmps.items()}
     failed = []
-    for name, (proc, tmp) in procs.items():
-        BUILD_LOG[name] = proc.communicate()[0]
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{BUILD_LOG[name]}")
+    for name, run in runs.items():
+        try:
+            run.result()
+        except AudioError as e:
+            failed.append(e.message)
         else:
-            os.replace(tmp, todo[name])  # atomic: another process never loads half a file
+            os.replace(tmps[name], todo[name])  # atomic: another process never loads half a file
     if failed:
         raise AudioError("\n".join(failed), code=ErrorCode.KERNEL_COMPILATION_FAILED)
 
@@ -100,5 +113,6 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             _compile([name])
-            lib = _LIBS[name] = ctypes.CDLL(str(_library(name)))
+            with trace.first(f"kernels.load.{name}"):
+                lib = _LIBS[name] = ctypes.CDLL(str(_library(name)))
         return lib

@@ -2676,6 +2676,7 @@ def main() -> int:
         return 1
     from audioflow_torch.graph import GriffinLim, Graph, PitchShift, Pyin, Spectrogram, TimeStretch
     from audioflow_torch.models import log_mel_frontend
+    from audioflow_torch.obs import trace
     from audioflow_torch.ops import (
         apply_mel, frame, griffin_lim, mel_filterbank, mel_to_audio, mel_to_stft, pitch_shift, power, pyin,
         stft, time_stretch, yin,
@@ -2711,7 +2712,7 @@ def main() -> int:
     for name in kernels:
         ptxas = [ln.strip() for ln in _build.BUILD_LOG.get(name, "").splitlines()
                  if "registers" in ln or "spill" in ln]
-        nvcc_s = _build.BUILD_SECONDS.get(name)
+        nvcc_s = trace.snapshot()["first"].get(f"kernels.build.{name}")
         built = f"nvcc {nvcc_s:.2f} s" if nvcc_s is not None else "already built in build/"
         print(f"phase 2 build: {name} ({built}); " + " | ".join(ptxas))
     print(f"phase 2 build: {len(kernels)} kernels ready in {build_s:.2f} s")

@@ -974,3 +974,34 @@ def test_bench_pvoc_on_card_runs_the_timestretch_kernel(cuda_device, tmp_path):
     (trace,) = tmp_path.glob("*.pt.trace.json")
     names = {e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"] if e.get("cat") == "kernel"}
     assert any("fft_analysis_kernel" in n for n in names) and any("phase_kernel" in n for n in names), names
+
+
+def test_the_device_intervals_of_a_pass_tile_it(cuda_device):
+    """Three traced ``scan_stream`` passes of the headline graph at the
+    benchmark's 2048 rows and 14,112-sample chunks (the later ones on events
+    the earlier ones gave back): the output equals the untraced pass's, and
+    the CUDA-event intervals of the node spans, of the graph's alignment and
+    of the passes' edges (the passes less their steps) tile the passes' own
+    intervals within 2%."""
+    from audioflow_torch.obs import trace
+
+    g = log_mel_frontend()
+    chunk, chunks, passes = 14112, 8, 3
+    x = torch.randn(2048, chunk * chunks, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(0))
+    want = g.scan_stream(x, chunk)
+    with trace.enable():
+        got = [g.scan_stream(x, chunk) for _ in range(passes)]
+    spans = trace.snapshot()["spans"]
+    assert all(torch.equal(y, want) for y in got)
+    align = spans.pop("graph.align")
+    assert align["count"] == align["device_count"] >= passes * chunks
+    assert {k: (v["count"], v["device_count"]) for k, v in spans.items()} == {
+        k: (passes * n, passes * n) for k, n in (
+            ("graph.scan_stream", 1), ("graph.init_state", 1), ("graph.concat", 1),
+            ("graph.stream_step", chunks), ("node.Resample", chunks), ("node.LogMelSpec", chunks))}
+    dev = {k: v["device_s"] for k, v in spans.items()}
+    edges = dev["graph.scan_stream"] - dev["graph.stream_step"]
+    nodes = dev["node.Resample"] + dev["node.LogMelSpec"]
+    assert edges >= dev["graph.concat"] > 0 and nodes > 0 and align["device_s"] > 0
+    total = nodes + align["device_s"] + edges
+    assert abs(total - dev["graph.scan_stream"]) <= 0.02 * dev["graph.scan_stream"], dev
