@@ -30,6 +30,7 @@ from ..ops.biquad import Biquad, iir_apply, make_iir_plan
 from ..ops.framing import frame, overlap_add
 from ..ops.griffinlim import griffin_lim
 from ..ops.kernels.melspec import mel_spectrogram
+from ..ops.kernels.resample import resample_stream_step
 from ..ops.mel import apply_mel, cached_filterbank, log_mel, mfcc
 from ..ops.phase_vocoder import (
     cumulative_phasor,
@@ -44,7 +45,6 @@ from ..ops.resample import (
     make_stream_plan,
     resample,
     resample_stream_init,
-    resample_stream_step,
     stream_chunk_multiple,
 )
 from ..ops.stft import (
@@ -161,7 +161,8 @@ class ToMono(Node):
 @register_node
 @dataclass(frozen=True)
 class Resample(Node):
-    """Rational resampler (polyphase banded matmul)."""
+    """Rational resampler: a polyphase banded matmul offline, the polyphase
+    kernel streamed on the card."""
 
     input_rate: int = 48000
     output_rate: int = 16000

@@ -6,8 +6,15 @@ A rational resampler (up=L, down=M) is a polyphase filter bank; a block of
 with ``W [ipb + K, G]`` a banded matrix of phase weights. The filter designs
 and plans below are host-side float64 numpy, copied bit for bit from
 ``audioflow_tpu/ops/resample.py`` so that the two packages use identical
-coefficients. The band itself is plain ``torch.matmul`` (cuBLAS on the card)
-over shifted reshapes of the signal, as the JAX package leaves it to XLA.
+coefficients.
+
+The offline resampler (:func:`resample_apply`) multiplies the band with
+plain ``torch.matmul`` (cuBLAS on the card) over shifted reshapes of the
+signal, as the JAX package leaves it to XLA. The streaming step
+(:func:`resample_stream_step`) is one launch of a hand-written polyphase
+kernel on a CUDA tensor (:mod:`.kernels.resample`), which reads only the
+band's nonzero taps; on the CPU it is the same banded matmul
+(:func:`resample_stream_step_reference`).
 
 Passthrough when rates match.
 """
@@ -317,7 +324,23 @@ def resample_stream_step(
     chunk: torch.Tensor,
     precision: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One streaming step: ``chunk [..., chunk_in]`` -> ``[..., n_out_chunk]``."""
+    """One streaming step: ``chunk [..., chunk_in]`` -> ``[..., n_out_chunk]``,
+    with the carry ``[..., hist]`` in and out: the polyphase kernel on a CUDA
+    tensor, :func:`resample_stream_step_reference` on the CPU
+    (:func:`.kernels.resample.resample_stream_step`)."""
+    from .kernels.resample import resample_stream_step as step
+
+    return step(plan, carry, chunk, precision)
+
+
+def resample_stream_step_reference(
+    plan: StreamResamplePlan,
+    carry: torch.Tensor,
+    chunk: torch.Tensor,
+    precision: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`resample_stream_step`: the carry and the
+    chunk concatenated and multiplied with the dense band."""
     if chunk.shape[-1] != plan.chunk_in:
         raise ValueError(f"chunk length {chunk.shape[-1]} != plan chunk_in {plan.chunk_in}")
     buf = torch.cat([carry, chunk], dim=-1)

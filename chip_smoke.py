@@ -27,16 +27,23 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
 ``viterbi``). Phases, each printing its own line:
 
 1. device: the ``nvidia-smi`` name and power-limit line, and the SM clock;
-2. build: the four kernels built from ``audioflow_torch/csrc``, one nvcc
+2. build: the five kernels built from ``audioflow_torch/csrc``, one nvcc
    per source started together, with the seconds taken and ptxas's
    registers and spills;
 3. melspec kernel vs plain at the main path's step shape, with the path it
    took (checked to be ``fft``), its dense path at n_fft 400, hop 160 on 8
    rows, and the same function composed from ``torch.fft.rfft`` (cuFFT)
    and plain torch timed beside it as a yardstick; the three timed by their
-   device time under torch.profiler, as in phase 9;
-4. melspec slice: shape, finiteness, launch count, and agreement with the
-   plain two-node graph (Spectrogram + MelProject);
+   device time under torch.profiler, as in phase 9; and the streaming
+   resampler's kernel against its plain version at the benchmark's step
+   shape (2048 rows, a 14,112-sample column slice and a carry of real
+   samples, 44.1 to 16 kHz), the path it took (checked to be ``tile``),
+   its new carry bit for bit, and its ms per call beside its bound, the
+   plain version's and the cuBLAS banded matmul's alone (the yardstick the
+   stream step no longer calls);
+4. melspec slice: shape, finiteness, launch counts (melspec and the
+   resampler, one a chunk each), and agreement with the plain two-node
+   graph (Spectrogram + MelProject);
 5. melspec timing: the slice, kernel path and plain path, in audio-seconds
    per second, timed with CUDA events;
 6. timestretch kernel vs plain: the path it took (checked to be ``fft``),
@@ -247,7 +254,7 @@ call; a kernel's reading sums the mean time per launch of each kernel it
 runs once a call, which events the profiler drops or repeats do not bias. Then a JSON line of the seconds of
 phases 34 to 38 and of the whole run, one JSON line of per-kernel numbers (with ``path`` and ``cufft_ms``
 for the three kernels built on the shared-memory FFT, ``cluster`` for
-viterbi), and last
+viterbi, ``path`` and ``library_ms`` for the resampler), and last
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a card, or
 without the package beside it, it exits non-zero and prints no result.
 
@@ -272,6 +279,10 @@ SECONDS = 10.0
 # kernel vs plain version on white noise: both fp32 with TF32 off, the sums
 # taken in another order; 1e-4 in log-mel space (ln)
 KERNEL_TOL = 1e-4
+# resampler kernel vs plain version on white noise, max|d|: fp32 sums of up to
+# 117 products in another order (the kernel over a group's shifted taps,
+# cuBLAS over the dense band's tiles), a few 1e-6 at unit-normal inputs
+RESAMPLE_TOL = 2e-5
 # whole slice vs the plain graph on the tone batch, from frame stream_latency
 # on: the log turns the rounding of low-power mel bins (tens of dB below the
 # tone) into larger absolute steps; the JAX package's own kernel-vs-XLA gate
@@ -2683,8 +2694,10 @@ def main() -> int:
     )
     from audioflow_torch.ops import pitch as pitch_ops
     from audioflow_torch.ops.kernels import _build, griffinlim, melspec, timestretch, viterbi
+    from audioflow_torch.ops.kernels import resample as resample_kernel
     from audioflow_torch.ops.framing import overlap_add
     from audioflow_torch.ops.mel import cached_filterbank, floor_log
+    from audioflow_torch.ops.resample import _banded_matmul, make_stream_plan, resample_stream_step_reference
     from audioflow_torch.ops.stft import dft_banks, pad_center, padded_window
     from audioflow_torch.profiling import tone_batch, vibrato_batch
     from audioflow_torch.utils.cache import on_device
@@ -2703,7 +2716,8 @@ def main() -> int:
     print(smi)
 
     # phase 2: one nvcc per source, started together
-    kernels = {"melspec": melspec, "timestretch": timestretch, "griffinlim": griffinlim, "viterbi": viterbi}
+    kernels = {"melspec": melspec, "timestretch": timestretch, "griffinlim": griffinlim, "viterbi": viterbi,
+               "resample": resample_kernel}
     t0 = time.perf_counter()
     _build.build(*kernels)
     for k in kernels.values():
@@ -2761,6 +2775,41 @@ def main() -> int:
           f"{fb.numel()} ({card})")
     del xs, xd, got, want, dense_args
 
+    # the streaming resampler's kernel at the benchmark's step shape: a
+    # 14,112-sample column slice of [2048, 2 x 14112] after a carry of the
+    # samples before it, 44.1 to 16 kHz
+    rs_plan = make_stream_plan(RATE, 16000, chunk_in=14112)
+    wide = torch.from_numpy(rng.standard_normal((2048, 2 * 14112)).astype(np.float32)).to(dev)
+    rs_chunk = wide[:, 14112:]
+    rs_carry = wide[:, 14112 - rs_plan.hist : 14112].contiguous()
+    rs_path = resample_kernel.kernel_path(rs_plan)
+    check(rs_path == "tile", f"the resampler takes the {rs_path} path at 44.1 to 16 kHz")
+    rs_new, rs_got = resample_kernel.resample_stream_step(rs_plan, rs_carry, rs_chunk)
+    rs_want = resample_stream_step_reference(rs_plan, rs_carry, rs_chunk)[1]
+    torch.cuda.synchronize()
+    rs_err = (rs_got - rs_want).abs().max().item()
+    check(rs_err <= RESAMPLE_TOL, f"resample kernel vs plain max|d| {rs_err} > {RESAMPLE_TOL}")
+    check(torch.equal(rs_new, rs_chunk[:, -rs_plan.hist :]), "the resampler's new carry is not the chunk's end")
+    rs_buf = torch.cat([rs_carry, rs_chunk], dim=-1)
+    rs_band = on_device(rs_plan.matrix, dev)
+    rs_blocks = rs_plan.n_out_chunk // rs_plan.block_out
+
+    def rs_banded():  # cuBLAS's two sgemms over the dense band: a yardstick the stream step no longer calls
+        return _banded_matmul(rs_buf, rs_band, rs_blocks, rs_plan.ipb)
+
+    rk_t = device_ms(lambda: resample_kernel.resample_stream_step(rs_plan, rs_carry, rs_chunk), 20, kernels=1)
+    rp_t = device_ms(lambda: resample_stream_step_reference(rs_plan, rs_carry, rs_chunk), 20)
+    rl_t = device_ms(rs_banded, 20)
+    rk_ms, rp_ms, rl_ms = rk_t[0], rp_t[0], rl_t[0]
+    # the chunk and the carry read once, the output and the new carry written once; K taps an output
+    rs_bytes = 4 * 2048 * (rs_plan.chunk_in + 2 * rs_plan.hist + rs_plan.n_out_chunk)
+    rs_bound, rs_by = bound_ms(2.0 * 2048 * rs_plan.n_out_chunk * rs_plan.k_taps, rs_bytes)
+    print(f"phase 3 resample kernel vs plain at [2048, 14112] -> [2048, {rs_plan.n_out_chunk}] (a column slice, "
+          f"a carry of real samples), path {rs_path}: max|d| {rs_err:.3e} (tol {RESAMPLE_TOL}), new carry bit-equal; "
+          f"kernel {timed(rk_t)}, {rs_bound / rk_ms:.1%} of its bound {rs_bound:.4f} ms ({rs_by}: "
+          f"{rs_bytes / 1e6:.1f} MB); plain {timed(rp_t)}; cuBLAS banded matmul alone {timed(rl_t)} ({card})")
+    del wide, rs_chunk, rs_carry, rs_new, rs_got, rs_want, rs_buf
+
     # phase 4: the slice through the port's entry points
     graph = log_mel_frontend(RATE, 16000, 1024, 256, 128, center=False)
     plain = log_mel_frontend(RATE, 16000, 1024, 256, 128, center=False, fused=False)
@@ -2773,18 +2822,20 @@ def main() -> int:
     lat = graph.stream_latency(chunk)
     n_frames = n_chunks * graph.chunk_lens(chunk)[-1]
 
-    melspec.COUNT.launches = 0
+    melspec.COUNT.launches = resample_kernel.COUNT.launches = 0
     y = graph.scan_stream(x, chunk)
     torch.cuda.synchronize()
-    launches = melspec.COUNT.launches
+    launches, rs_launches = melspec.COUNT.launches, resample_kernel.COUNT.launches
     check(launches == n_chunks, f"melspec launched {launches} times for {n_chunks} chunks")
+    check(rs_launches == n_chunks, f"the resampler launched {rs_launches} times for {n_chunks} chunks")
     check(tuple(y.shape) == (BATCH, n_frames, 128), f"slice output shape {tuple(y.shape)}")
     check(bool(torch.isfinite(y).all()), "non-finite log-mel values")
     y_plain = plain.scan_stream(x, chunk)
     slice_err = (y[:, lat:] - y_plain[:, lat:]).abs().max().item()
     check(slice_err <= SLICE_TOL, f"slice vs plain graph max|d| {slice_err} > {SLICE_TOL}")
     print(f"phase 4 slice: {BATCH} x {x.shape[-1]} samples, chunk {chunk} -> {tuple(y.shape)}, "
-          f"finite, melspec launches {launches} = chunks {n_chunks}, vs plain graph from frame "
+          f"finite, melspec launches {launches} = resample launches {rs_launches} = chunks {n_chunks}, "
+          f"vs plain graph from frame "
           f"{lat}: max|d| {slice_err:.3e} (tol {SLICE_TOL})")
     del y, y_plain
 
@@ -3238,6 +3289,11 @@ def main() -> int:
             "launches_analysis": la["viterbi"], "launches_pitch_cli": ana["launches_pitch_cli"],
             "max_abs_err": vit_err, "ms": vk_ms, "ms_readings": vk_t[1], "plain_ms": vp_ms,
             "bound_ms": vit_bound, "bound_by": vit_by, "library_ms": None, "cluster": vit_cluster,
+        },
+        {
+            "name": "resample", "route": "cuda", "source": "audioflow_torch/csrc/resample.cu",
+            "replaces": None, "launches": rs_launches, "max_abs_err": rs_err, "ms": rk_ms, "ms_readings": rk_t[1],
+            "plain_ms": rp_ms, "bound_ms": rs_bound, "bound_by": rs_by, "library_ms": rl_ms, "path": rs_path,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@ from audioflow_torch.graph import GriffinLim, Pyin, Spectrogram, chain
 from audioflow_torch.models import log_mel_frontend
 from audioflow_torch.ops import griffin_lim, istft, mel_to_audio, pitch_shift, pyin, stft, time_stretch
 from audioflow_torch.ops.kernels import griffinlim, melspec, timestretch, viterbi
+from audioflow_torch.ops.kernels import resample as resample_kernel
 from audioflow_torch.ops.mel import mel_filterbank
+from audioflow_torch.ops.resample import make_stream_plan, resample_stream_step_reference
 from audioflow_torch.ops.stft import dft_banks, padded_window
 from logging_guard import restore_audioflow_logger  # noqa: F401  (autouse)
 
@@ -92,6 +94,108 @@ def test_slice_on_card_matches_cpu(cuda_device):
     want = g.scan_stream(torch.from_numpy(x), chunk)
     assert got.shape == want.shape == (4, 60, 128)
     assert (got - want).abs().max().item() <= 1e-3
+
+
+# --- the streaming resampler's kernel (csrc/resample.cu) against its plain version ---
+
+# Both sum in fp32, in other orders: the kernel over a group's span of
+# shifted taps (97 to 117 at 44.1 to 16 kHz), cuBLAS over the dense band in
+# its own tiles. With unit-normal inputs and taps below 1 each sum's
+# rounding is at most about span x 2^-24 x sum|tap x input|, a few 1e-6;
+# 2e-5 leaves room and sits far below the 1e-2 that one wrong tap gives.
+RESAMPLE_TOL = 2e-5
+
+
+def _step_inputs(plan, lead, device, seed=0):
+    rng = np.random.default_rng(seed)
+    carry = torch.from_numpy(rng.standard_normal((*lead, plan.hist)).astype(np.float32)).to(device)
+    chunk = torch.from_numpy(rng.standard_normal((*lead, plan.chunk_in)).astype(np.float32)).to(device)
+    return carry, chunk
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+# the benchmark's pair, the dictation trunk's decimation, an interpolating
+# pair, cubic and linear (no carry), and 96 to 8 kHz, whose 385 taps take
+# the generic path
+@pytest.mark.parametrize(
+    "rates,mode,chunk_in,path",
+    [
+        ((44100, 16000), "kaiser", 14112, "tile"),
+        ((48000, 16000), "kaiser", 1536, "tile"),
+        ((16000, 48000), "kaiser", 344, "tile"),
+        ((44100, 16000), "cubic", 882, "tile"),
+        ((44100, 16000), "linear", 882, "tile"),
+        ((96000, 8000), "kaiser", 3072, "generic"),
+    ],
+)
+@pytest.mark.parametrize("lead", [(), (3,), (2, 4)])
+def test_resample_kernel_matches_plain(cuda_device, rates, mode, chunk_in, path, lead):
+    plan = make_stream_plan(*rates, mode, chunk_in=chunk_in)
+    assert resample_kernel.kernel_path(plan) == path
+    carry, chunk = _step_inputs(plan, lead, cuda_device)
+    before = resample_kernel.COUNT.launches
+    c_k, y_k = resample_kernel.resample_stream_step(plan, carry, chunk)
+    torch.cuda.synchronize()
+    assert resample_kernel.COUNT.launches == before + 1
+    c_p, y_p = resample_stream_step_reference(plan, carry, chunk)
+    assert y_k.shape == y_p.shape == (*lead, plan.n_out_chunk) and c_k.shape == c_p.shape
+    assert (y_k - y_p).abs().max().item() <= RESAMPLE_TOL
+    assert torch.equal(_bits(c_k), _bits(chunk[..., chunk_in - plan.hist :]))
+
+
+def test_resample_kernel_at_the_cells_step_shape(cuda_device):
+    """256 rows of the benchmark's 14,112-sample chunk at 44.1 to 16 kHz,
+    after a carry of real samples."""
+    plan = make_stream_plan(44100, 16000, chunk_in=14112)
+    carry, chunk = _step_inputs(plan, (256,), cuda_device, seed=5)
+    c_k, y_k = resample_kernel.resample_stream_step(plan, carry, chunk)
+    c_p, y_p = resample_stream_step_reference(plan, carry, chunk)
+    assert y_k.shape == (256, 5120)
+    assert (y_k - y_p).abs().max().item() <= RESAMPLE_TOL
+    assert torch.equal(_bits(c_k), _bits(chunk[:, -plan.hist :]))
+    c_2, y_2 = resample_kernel.resample_stream_step(plan, c_k, chunk)
+    assert (y_2 - resample_stream_step_reference(plan, c_k, chunk)[1]).abs().max().item() <= RESAMPLE_TOL
+
+
+def test_resample_kernel_reads_strided_rows_bit_for_bit(cuda_device):
+    """A column slice of a wider tensor (rows 16-byte aligned, and not)
+    gives the bits of its contiguous copy, and two launches the same bits."""
+    plan = make_stream_plan(44100, 16000, chunk_in=14112)
+    rng = np.random.default_rng(2)
+    carry = torch.from_numpy(rng.standard_normal((64, plan.hist)).astype(np.float32)).to(cuda_device)
+    for extra, offset in ((0, plan.chunk_in), (5, 1)):
+        wide = torch.from_numpy(rng.standard_normal((64, 3 * plan.chunk_in + extra)).astype(np.float32))
+        chunk = wide.to(cuda_device)[:, offset : offset + plan.chunk_in]
+        assert not chunk.is_contiguous()
+        runs = [resample_kernel.resample_stream_step(plan, carry, c) for c in (chunk, chunk.contiguous(), chunk)]
+        for c_k, y_k in runs[1:]:
+            assert torch.equal(_bits(c_k), _bits(runs[0][0])) and torch.equal(_bits(y_k), _bits(runs[0][1]))
+
+
+def test_resample_kernel_launches_once_a_chunk(cuda_device):
+    graph = log_mel_frontend(44100, 16000, 1024, 256, 128, center=False)
+    chunk = graph.chunk_granularity() * max(1, 14112 // graph.chunk_granularity())
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((4, 5 * chunk)).astype(np.float32))
+    before = resample_kernel.COUNT.launches
+    graph.scan_stream(x.to(cuda_device), chunk)
+    torch.cuda.synchronize()
+    assert resample_kernel.COUNT.launches - before == 5
+
+
+def test_resample_kernel_rejects_what_it_does_not_take(cuda_device):
+    plan = make_stream_plan(44100, 16000, chunk_in=882)
+    carry, chunk = _step_inputs(plan, (2,), cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        resample_kernel.resample_stream_step(plan, carry.double(), chunk.double())
+    with pytest.raises(ValueError, match="float32"):
+        resample_kernel.resample_stream_step(plan, carry.to(torch.int32), chunk.to(torch.int32))
+    with pytest.raises(ValueError, match="chunk_in"):
+        resample_kernel.resample_stream_step(plan, carry, chunk[:, :-1])
+    with pytest.raises(ValueError, match="carry"):
+        resample_kernel.resample_stream_step(plan, carry[:, 1:], chunk)
 
 
 def _tones(shape, seed=0):
