@@ -16,6 +16,7 @@ Data domains: "samples" (PCM [..., T]), "frames" (spectral [..., T, F]),
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 
@@ -29,7 +30,7 @@ from ..ops import vad as _vad
 from ..ops.biquad import Biquad, iir_apply, make_iir_plan
 from ..ops.framing import frame, overlap_add
 from ..ops.griffinlim import griffin_lim
-from ..ops.kernels.melspec import mel_spectrogram
+from ..ops.kernels.melspec import MelSpec
 from ..ops.kernels.resample import resample_stream_step
 from ..ops.mel import apply_mel, cached_filterbank, log_mel, mfcc
 from ..ops.phase_vocoder import (
@@ -515,14 +516,24 @@ class LogMelSpec(_Framed):
             self.f_min, self.f_max, self.htk, self.norm,
         )
 
+    @functools.lru_cache(maxsize=64)  # keyed by the node, a small frozen value, and the device
+    def _melspec(self, device: torch.device) -> MelSpec:
+        """The kernel prepared for this node's designs on ``device``, once."""
+        cosb, sinb = dft_banks(self.n_fft, self.window, self.win_length, device)
+        w = on_device(padded_window(self.n_fft, self.window, self.win_length), device)
+        return MelSpec(cosb, sinb, w, on_device(self._fb(), device), self.hop, self.log, self.floor)
+
     def _frames(self, x):
-        cosb, sinb = dft_banks(self.n_fft, self.window, self.win_length, x.device)
-        w = on_device(padded_window(self.n_fft, self.window, self.win_length), x.device)
-        fb = on_device(self._fb(), x.device)
-        return mel_spectrogram(x.contiguous(), cosb, sinb, w, fb, self.hop, self.log, self.floor)
+        return self._melspec(x.device)(x.contiguous())
 
     def apply(self, x):
         return self._frames(pad_center(x, self.n_fft) if self.center else x)
+
+    def step(self, carry, chunk):
+        if chunk.device.type != "cuda":  # the CPU and meta: the plain step over the cat
+            return super().step(carry, chunk)
+        # one launch reads the carry and the chunk where they lie and writes the new carry
+        return self._melspec(chunk.device).step(carry, chunk)
 
 
 @register_node

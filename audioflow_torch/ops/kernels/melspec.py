@@ -2,19 +2,31 @@
 
 The kernel (``csrc/melspec.cu``) replaces the Pallas kernel
 ``audioflow_tpu/ops/pallas/melspec.py::mel_spectrogram_pallas``. It computes
-``log(max(fbᵀ·|DFT_w(frame)|², floor))`` over center=False frames of
-``x [..., T]`` without writing the frames or the power spectrum to device
-memory. The Pallas kernel's 64-frame x 8-row tiling and its overlapped tile
-tensor are TPU artefacts and are not carried over; see the source's note for
-the CUDA design. The kernel has two paths behind one launch, chosen by shape
+``log(max(fbᵀ·|DFT_w(frame)|², floor))`` over center=False frames of a
+signal without writing the frames or the power spectrum to device memory.
+The Pallas kernel's 64-frame x 8-row tiling and its overlapped tile tensor
+are TPU artefacts and are not carried over; see the source's note for the
+CUDA design. The kernel has two paths behind one launch, chosen by shape
 (:func:`kernel_path`): a shared-memory FFT (``csrc/fft.cuh``) for a
 power-of-two n_fft from 16 to 2048, dense DFT products against the banks for
 any other. Both project the power spectrum onto the filterbank's nonzero
 bands only (:func:`mel_bands`).
 
-:func:`mel_spectrogram` takes a tensor on the CPU to the plain version
-:func:`mel_spectrogram_reference`, launches the kernel for a CUDA tensor,
-and raises for anything the kernel does not take. It never falls back.
+A :class:`MelSpec` is the kernel prepared once for one set of designs on one
+device: the band layout, the twiddles, the path and the shared-memory check
+resolved, the pointers packed. Each row the kernel reads is ``[carry |
+chunk]``, the two segments read in place by their own pointers and row
+strides, and it writes the new carry (the row's last ``carry.shape[-1]``
+samples) into a fresh tensor: :meth:`MelSpec.step` is a stream step in one
+launch, with no concatenation. The offline call (:meth:`MelSpec.__call__`,
+:func:`mel_spectrogram`) is the same launch with a carry of length 0. The
+launch's bound is the bytes it moves: the two segments read once, the mel
+frames and the new carry written once.
+
+On the CPU or the meta device every call is the plain version
+(:func:`mel_spectrogram_reference`, the stream step over the concatenation);
+for a CUDA tensor it launches the kernel, and raises for anything the kernel
+does not take. It never falls back.
 """
 
 from __future__ import annotations
@@ -43,6 +55,8 @@ _FFT_FRAMES = 8
 
 # band layouts on the device, keyed by the filterbank tensor they were read from
 _BANDS = BoundedCache(maxsize=16)
+# prepared launches of mel_spectrogram, keyed by its designs' identities
+_PREPARED = BoundedCache(maxsize=16)
 
 
 @dataclass
@@ -52,20 +66,42 @@ class LaunchCount:
     launches: int = 0
 
 
-COUNT = LaunchCount()
+@dataclass
+class MelspecCount(LaunchCount):
+    """:class:`LaunchCount`, and of those launches the ones that read a carry
+    in place (a stream step's)."""
+
+    carry_launches: int = 0
+
+
+COUNT = MelspecCount()
+
+
+class _Params(ctypes.Structure):
+    """Mirror of melspec.cu's ``MelspecParams``: a design set on a device and its sizes."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in ("window", "tw", "cosb", "sinb", "bands", "wts")] + [
+        (name, ctypes.c_int) for name in ("n_fft", "hop", "n_bins", "n_mels", "log_mode")
+    ] + [("floor", ctypes.c_float)]
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load("melspec")
-    lib.melspec_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p,
+    lib.melspec_launch.argtypes = [
+        ctypes.POINTER(_Params), ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.melspec_launch.restype = ctypes.c_int
     lib.melspec_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.melspec_smem_bytes.restype = ctypes.c_longlong
     lib.melspec_path.argtypes = [ctypes.c_int]
     lib.melspec_path.restype = ctypes.c_int
+    lib.melspec_params_bytes.argtypes = []
+    lib.melspec_params_bytes.restype = ctypes.c_int
+    if lib.melspec_params_bytes() != ctypes.sizeof(_Params):
+        raise RuntimeError(f"_Params is out of date with melspec.cu: {ctypes.sizeof(_Params)} bytes, "
+                           f"the library's {lib.melspec_params_bytes()}")
     return lib
 
 
@@ -133,6 +169,31 @@ def _device_bands(fb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hit[1], hit[2]
 
 
+def _row_stride(t: torch.Tensor) -> int | None:
+    """The one stride between consecutive rows of ``t [..., n]`` taken as
+    ``[rows, n]``, or None where its layout has none (or its samples are not
+    adjacent)."""
+    shape, strides = t.shape, t.stride()
+    if shape[-1] > 1 and strides[-1] != 1:
+        return None
+    if t.ndim == 1:
+        return shape[-1]
+    row = strides[-2]
+    for i in range(t.ndim - 3, -1, -1):
+        if shape[i] > 1 and strides[i] != strides[i + 1] * shape[i + 1]:
+            return None
+    return row
+
+
+def _rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``t`` and its row stride, copied first where its layout has none."""
+    stride = _row_stride(t)
+    if stride is None:
+        t = t.contiguous()
+        stride = t.shape[-1]
+    return t, stride
+
+
 def mel_spectrogram_reference(
     x: torch.Tensor,
     cosb: torch.Tensor,
@@ -150,7 +211,7 @@ def mel_spectrogram_reference(
     return floor_log(torch.matmul(re * re + im * im, fb), floor, log)
 
 
-def _check(x, cosb, sinb, window, fb, hop, log):
+def _check_designs(cosb, sinb, window, fb, hop, log):
     if log not in LOG_MODES:
         raise ValueError(f"unknown log {log!r}; known: {sorted(map(str, LOG_MODES))}")
     if hop < 1:
@@ -161,11 +222,133 @@ def _check(x, cosb, sinb, window, fb, hop, log):
         raise ValueError(f"window {tuple(window.shape)} does not take n_fft {cosb.shape[0]}")
     if fb.ndim != 2 or fb.shape[0] != cosb.shape[1]:
         raise ValueError(f"filterbank {tuple(fb.shape)} does not take {cosb.shape[1]} bins")
-    if x.shape[-1] < cosb.shape[0]:
-        raise ValueError(f"signal length {x.shape[-1]} shorter than n_fft {cosb.shape[0]}")
-    for name, t in (("x", x), ("cos bank", cosb), ("sin bank", sinb), ("window", window), ("filterbank", fb)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, the signal on {x.device}")
+    for name, t in (("sin bank", sinb), ("window", window), ("filterbank", fb)):
+        if t.device != cosb.device:
+            raise ValueError(f"{name} is on {t.device}, the cos bank on {cosb.device}")
+
+
+class MelSpec:
+    """The kernel prepared for one set of designs on one device.
+
+    ``cosb``/``sinb`` ``[n_fft, n_bins]`` are the window-folded DFT banks
+    (``ops.stft.dft_banks``) of the dense path and the plain version,
+    ``window [n_fft]`` the same analysis window unfolded
+    (``ops.stft.padded_window`` as float32) for the FFT path, ``fb [n_bins,
+    n_mels]`` the mel filterbank. ``log`` is "ln", "log10", "db" or None
+    (floored linear mel). On a CUDA device everything that depends on the
+    designs alone is resolved here, once: a call checks its signal, allocates
+    its outputs and launches on the current stream.
+    """
+
+    def __init__(self, cosb, sinb, window, fb, hop: int, log: str | None = "ln", floor: float = 1e-10):
+        _check_designs(cosb, sinb, window, fb, hop, log)
+        self.designs = (cosb, sinb, window, fb)
+        self.hop, self.log, self.floor = hop, log, floor
+        self.n_fft, self.n_mels = cosb.shape[0], fb.shape[1]
+        self.device = cosb.device
+        self._params = None
+        if self.device.type in ("cpu", "meta"):  # meta tensors carry shapes only
+            return
+        if self.device.type != "cuda":
+            raise ValueError(f"the melspec kernel runs on cpu or cuda tensors, not {self.device.type}")
+        if any(t.dtype != torch.float32 for t in self.designs):
+            raise ValueError(f"the kernel takes float32, got {[t.dtype for t in self.designs]}")
+        if not all(t.is_contiguous() for t in self.designs):
+            raise ValueError("the kernel takes contiguous designs")
+        n_bins = cosb.shape[1]
+        lib = _lib()
+        frames, smem = lib.melspec_path(self.n_fft), lib.melspec_smem_bytes(self.n_fft, n_bins)
+        if (frames, smem) != (fft_frames(self.n_fft), smem_bytes(self.n_fft)):
+            raise RuntimeError(
+                f"fft_frames()/smem_bytes() are out of date with melspec.cu: "
+                f"{(fft_frames(self.n_fft), smem_bytes(self.n_fft))} vs {(frames, smem)}"
+            )
+        if smem > _MAX_SMEM:
+            raise ValueError(f"n_fft {self.n_fft} needs {smem} B of shared memory per block, over {_MAX_SMEM}")
+        tw = on_device(fft.twiddles(self.n_fft), self.device) if frames else None
+        bands, wts = _device_bands(fb)
+        self._keep = (tw, bands, wts)  # alive as long as the pointers
+        self._params = _Params(
+            window.data_ptr(), None if tw is None else tw.data_ptr(), cosb.data_ptr(), sinb.data_ptr(),
+            bands.data_ptr(), wts.data_ptr(), self.n_fft, hop, n_bins, self.n_mels, LOG_MODES[log], floor,
+        )
+
+    def _reference(self, x):
+        if x.shape[-1] < self.n_fft:
+            raise ValueError(f"signal length {x.shape[-1]} shorter than n_fft {self.n_fft}")
+        cosb, sinb, _, fb = self.designs
+        return mel_spectrogram_reference(x, cosb, sinb, fb, self.hop, self.log, self.floor)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """(log-)mel spectrogram ``[..., frames, n_mels]`` of ``x [..., T]``:
+        the launch with a carry of length 0. On the card ``x``'s rows may lie
+        at any one stride; a layout without one is refused."""
+        if self._params is None:
+            if x.device != self.device:
+                raise ValueError(f"the signal is on {x.device}, the designs on {self.device}")
+            return self._reference(x)
+        row = _row_stride(x)
+        if row is None:
+            raise ValueError("the kernel takes a signal whose rows lie at one stride (contiguous samples)")
+        return self._launch(x[..., :0], 0, x, row)[1]
+
+    def step(self, carry: torch.Tensor, chunk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One stream step: ``carry [..., C]`` and ``chunk [..., n]`` ->
+        (new carry, frames), the new carry ``[..., C]`` the last C samples of
+        ``[carry | chunk]`` and the frames ``[..., frames, n_mels]`` its
+        (log-)mel spectrogram. On the card one launch reads both where they
+        lie and writes the new carry into a fresh tensor, never a view of
+        either."""
+        if carry.shape[:-1] != chunk.shape[:-1]:
+            raise ValueError(f"carry {tuple(carry.shape)} and chunk {tuple(chunk.shape)} differ in their lead axes")
+        if self._params is None:
+            buf = torch.cat([carry, chunk], dim=-1)
+            return buf[..., buf.shape[-1] - carry.shape[-1] :], self(buf)
+        chunk, chunk_row = _rows(chunk)
+        carry, carry_row = _rows(carry)
+        return self._launch(carry, carry_row, chunk, chunk_row)
+
+    def _launch(self, carry, carry_row, chunk, chunk_row):
+        device = self.device
+        if chunk.device != device or carry.device != device:
+            raise ValueError(f"the signal is on {chunk.device} and {carry.device}, the designs on {device}")
+        if chunk.dtype != torch.float32 or carry.dtype != torch.float32:
+            raise ValueError(f"the kernel takes float32, got {chunk.dtype} and {carry.dtype}")
+        lead, n, c = chunk.shape[:-1], chunk.shape[-1], carry.shape[-1]
+        t = c + n
+        if t < self.n_fft:
+            raise ValueError(f"signal length {t} shorter than n_fft {self.n_fft}")
+        rows = lead.numel()
+        if max(rows, t) >= 2**31:
+            raise ValueError(f"{rows} rows of {t} samples: each must be below 2**31")
+        n_frames = num_frames(t, self.n_fft, self.hop)
+        out = torch.empty((*lead, n_frames, self.n_mels), dtype=torch.float32, device=device)
+        new_carry = torch.empty((*lead, c), dtype=torch.float32, device=device) if c else carry[..., :0]
+        args = (self._params, carry.data_ptr(), carry_row, c, chunk.data_ptr(), chunk_row, n, out.data_ptr(),
+                new_carry.data_ptr(), rows, torch._C._cuda_getCurrentRawStream(device.index))
+        if device.index == torch.cuda.current_device():  # torch.cuda.device's switch costs more host time than the rest
+            err = _lib().melspec_launch(*args)
+        else:  # the runtime launches on the calling thread's device
+            with torch.cuda.device(device):
+                err = _lib().melspec_launch(*args)
+        if err != 0:
+            raise RuntimeError(f"melspec kernel launch failed: cudaError {err}")
+        COUNT.launches += 1
+        if c:
+            COUNT.carry_launches += 1
+        return new_carry, out
+
+
+def prepare(cosb, sinb, window, fb, hop: int, log: str | None = "ln", floor: float = 1e-10) -> MelSpec:
+    """The :class:`MelSpec` of these designs, made once per set of tensors
+    (and filterbank version: an in-place edit prepares anew). The entry
+    holds the tensors, so their ids are not reused while it lives."""
+    key = (id(cosb), id(sinb), id(window), id(fb), fb._version, hop, log, floor)
+    hit = _PREPARED.get(key)
+    if hit is None:
+        hit = MelSpec(cosb, sinb, window, fb, hop, log, floor)
+        _PREPARED[key] = hit
+    return hit
 
 
 def mel_spectrogram(
@@ -178,52 +361,6 @@ def mel_spectrogram(
     log: str | None = "ln",
     floor: float = 1e-10,
 ) -> torch.Tensor:
-    """(log-)mel spectrogram ``[..., frames, n_mels]`` of ``x [..., T]``.
-
-    ``cosb``/``sinb`` ``[n_fft, n_bins]`` are the window-folded DFT banks
-    (``ops.stft.dft_banks``) of the dense path and the plain version,
-    ``window [n_fft]`` the same analysis window unfolded
-    (``ops.stft.padded_window`` as float32) for the FFT path, ``fb [n_bins,
-    n_mels]`` the mel filterbank. ``log`` is "ln", "log10", "db" or None
-    (floored linear mel).
-    """
-    _check(x, cosb, sinb, window, fb, hop, log)
-    if x.device.type in ("cpu", "meta"):  # meta tensors carry shapes only
-        return mel_spectrogram_reference(x, cosb, sinb, fb, hop, log, floor)
-    if x.device.type != "cuda":
-        raise ValueError(f"mel_spectrogram runs on cpu or cuda tensors, not {x.device.type}")
-    tensors = (x, cosb, sinb, window, fb)
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError(f"the kernel takes float32, got {[t.dtype for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the kernel takes contiguous tensors")
-    n_fft, n_bins = cosb.shape
-    n_mels = fb.shape[1]
-    lead, t = x.shape[:-1], x.shape[-1]
-    batch = x.numel() // t
-    n_frames = num_frames(t, n_fft, hop)
-    if max(batch, t) >= 2**31:
-        raise ValueError(f"batch {batch} and length {t} must each be below 2**31")
-    lib = _lib()
-    frames, smem = lib.melspec_path(n_fft), lib.melspec_smem_bytes(n_fft, n_bins)
-    if (frames, smem) != (fft_frames(n_fft), smem_bytes(n_fft)):
-        raise RuntimeError(
-            f"fft_frames()/smem_bytes() are out of date with melspec.cu: "
-            f"{(fft_frames(n_fft), smem_bytes(n_fft))} vs {(frames, smem)}"
-        )
-    if smem > _MAX_SMEM:
-        raise ValueError(f"n_fft {n_fft} needs {smem} B of shared memory per block, over {_MAX_SMEM}")
-    tw = on_device(fft.twiddles(n_fft), x.device) if frames else None
-    bands, wts = _device_bands(fb)
-    out = torch.empty((batch, n_frames, n_mels), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.melspec_launch(
-            x.data_ptr(), window.data_ptr(), None if tw is None else tw.data_ptr(), cosb.data_ptr(),
-            sinb.data_ptr(), bands.data_ptr(), wts.data_ptr(), out.data_ptr(),
-            batch, t, n_fft, hop, n_bins, n_mels, n_frames, LOG_MODES[log], floor,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"melspec kernel launch failed: cudaError {err}")
-    COUNT.launches += 1
-    return out.reshape(*lead, n_frames, n_mels)
+    """(log-)mel spectrogram ``[..., frames, n_mels]`` of ``x [..., T]``:
+    :class:`MelSpec` of the designs (see there), called on ``x``."""
+    return prepare(cosb, sinb, window, fb, hop, log, floor)(x)

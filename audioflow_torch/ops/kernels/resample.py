@@ -32,7 +32,7 @@ from ...utils import cdiv
 from ...utils.cache import BoundedCache
 from .._mm import check_precision
 from ._build import load
-from .melspec import LaunchCount
+from .melspec import LaunchCount, _rows
 
 # outputs of a group, mirror of resample.cu's kJ
 GROUP = 8
@@ -123,31 +123,6 @@ def kernel_tables(plan) -> KernelTables:
     ct[shift[:, None] + np.arange(k), cols[:, None]] = bank[phase]
     ct = ct.reshape(span, n_groups, 2, 4).transpose(0, 2, 1, 3)
     return KernelTables(np.ascontiguousarray(ct), qbase.astype(np.int32), span)
-
-
-def _row_stride(t: torch.Tensor) -> int | None:
-    """The one stride between consecutive rows of ``t [..., n]`` taken as
-    ``[rows, n]``, or None where its layout has none (or its samples are not
-    adjacent)."""
-    shape, strides = t.shape, t.stride()
-    if shape[-1] > 1 and strides[-1] != 1:
-        return None
-    if t.ndim == 1:
-        return shape[-1]
-    row = strides[-2]
-    for i in range(t.ndim - 3, -1, -1):
-        if shape[i] > 1 and strides[i] != strides[i + 1] * shape[i + 1]:
-            return None
-    return row
-
-
-def _rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """``t`` and its row stride, copied first where its layout has none."""
-    stride = _row_stride(t)
-    if stride is None:
-        t = t.contiguous()
-        stride = t.shape[-1]
-    return t, stride
 
 
 def _params(plan, device: torch.device) -> _Params:

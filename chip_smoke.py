@@ -2775,6 +2775,37 @@ def main() -> int:
           f"{fb.numel()} ({card})")
     del xs, xd, got, want, dense_args
 
+    # the stream step's carry launch at the benchmark's shape: 2048 rows of
+    # a 768-sample carry and a 5,120-sample chunk read where they lie, the
+    # chunk a narrow view of rows 5,359 apart (as graph.align leaves it),
+    # beside the offline launch on their concatenation and the cat it spares
+    spec = melspec.prepare(cosb, sinb, win, fb, 256)
+    st_carry = torch.from_numpy(rng.standard_normal((2048, 768)).astype(np.float32)).to(dev)
+    st_chunk = torch.from_numpy(rng.standard_normal((2048, 5359)).astype(np.float32)).to(dev)[:, :5120]
+    before_carry = melspec.COUNT.carry_launches
+    st_new, st_got = spec.step(st_carry, st_chunk)
+    st_buf = torch.cat([st_carry, st_chunk], dim=-1)
+    st_want = melspec.mel_spectrogram_reference(st_buf, cosb, sinb, fb, 256)
+    torch.cuda.synchronize()
+    check(melspec.COUNT.carry_launches == before_carry + 1, "the stream step is not one carry launch")
+    carry_err = (st_got - st_want).abs().max().item()
+    check(carry_err <= KERNEL_TOL, f"melspec carry launch vs plain on the cat max|d| {carry_err} > {KERNEL_TOL}")
+    check(torch.equal(st_got, spec(st_buf)), "the carry launch differs from the offline launch on the cat")
+    check(torch.equal(st_new, st_buf[:, -768:]), "the new carry is not the rows' last 768 samples")
+    sk_t = device_ms(lambda: spec.step(st_carry, st_chunk), 20, kernels=1)
+    so_t = device_ms(lambda: spec(st_buf), 20, kernels=1)
+    sc_t = device_ms(lambda: torch.cat([st_carry, st_chunk], dim=-1), 20)
+    # as phase 5's bound, at 2048 rows of 5,888 samples, with the new carry written
+    st_flops = 2048 * 20 * (1024 + rfft_flops(1024) + 3 * 513 + 2 * fb_nnz + 2 * 128)
+    st_bytes = 4 * (2048 * (5888 + 20 * 128 + 768) + 2 * 1024 + 3 * 128 + fb_nnz)
+    st_bound, st_by = bound_ms(st_flops, st_bytes)
+    print(f"phase 3 melspec carry launch at [2048, 768 + 5120] (chunk rows 5,359 apart) -> [2048, 20, 128]: max|d| "
+          f"vs plain on the cat {carry_err:.3e}, bit-equal to the offline launch on the cat, new carry bit-equal; "
+          f"carry launch {timed(sk_t)}, {st_bound / sk_t[0]:.1%} of its bound {st_bound:.4f} ms ({st_by}: "
+          f"{st_bytes / 1e6:.1f} MB); offline launch on the cat {timed(so_t)}; the cat it spares {timed(sc_t)} "
+          f"({card})")
+    del st_carry, st_chunk, st_new, st_got, st_buf, st_want
+
     # the streaming resampler's kernel at the benchmark's step shape: a
     # 14,112-sample column slice of [2048, 2 x 14112] after a carry of the
     # samples before it, 44.1 to 16 kHz
@@ -2822,11 +2853,13 @@ def main() -> int:
     lat = graph.stream_latency(chunk)
     n_frames = n_chunks * graph.chunk_lens(chunk)[-1]
 
-    melspec.COUNT.launches = resample_kernel.COUNT.launches = 0
+    melspec.COUNT.launches = melspec.COUNT.carry_launches = resample_kernel.COUNT.launches = 0
     y = graph.scan_stream(x, chunk)
     torch.cuda.synchronize()
     launches, rs_launches = melspec.COUNT.launches, resample_kernel.COUNT.launches
     check(launches == n_chunks, f"melspec launched {launches} times for {n_chunks} chunks")
+    check(melspec.COUNT.carry_launches == launches, f"{melspec.COUNT.carry_launches} of {launches} melspec "
+          "launches read their carry in place")
     check(rs_launches == n_chunks, f"the resampler launched {rs_launches} times for {n_chunks} chunks")
     check(tuple(y.shape) == (BATCH, n_frames, 128), f"slice output shape {tuple(y.shape)}")
     check(bool(torch.isfinite(y).all()), "non-finite log-mel values")
@@ -2834,7 +2867,8 @@ def main() -> int:
     slice_err = (y[:, lat:] - y_plain[:, lat:]).abs().max().item()
     check(slice_err <= SLICE_TOL, f"slice vs plain graph max|d| {slice_err} > {SLICE_TOL}")
     print(f"phase 4 slice: {BATCH} x {x.shape[-1]} samples, chunk {chunk} -> {tuple(y.shape)}, "
-          f"finite, melspec launches {launches} = resample launches {rs_launches} = chunks {n_chunks}, "
+          f"finite, melspec launches {launches} = carry launches = resample launches {rs_launches} = chunks "
+          f"{n_chunks}, "
           f"vs plain graph from frame "
           f"{lat}: max|d| {slice_err:.3e} (tol {SLICE_TOL})")
     del y, y_plain

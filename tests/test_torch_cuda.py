@@ -56,10 +56,11 @@ def _inputs(shape, n_fft, n_mels, window, device, win_length=None):
 def test_kernel_matches_plain(cuda_device, shape, n_fft, hop, n_mels, window, log, win_length, path):
     x, cosb, sinb, w, fb = _inputs(shape, n_fft, n_mels, window, cuda_device, win_length)
     assert melspec.kernel_path(n_fft) == path
-    before = melspec.COUNT.launches
+    before, before_carry = melspec.COUNT.launches, melspec.COUNT.carry_launches
     got = melspec.mel_spectrogram(x, cosb, sinb, w, fb, hop, log=log)
     torch.cuda.synchronize()
     assert melspec.COUNT.launches == before + 1
+    assert melspec.COUNT.carry_launches == before_carry  # the offline launch reads no carry
     want = melspec.mel_spectrogram_reference(x, cosb, sinb, fb, hop, log=log)
     assert got.shape == want.shape
     if log is None:
@@ -80,6 +81,16 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         melspec.mel_spectrogram(x, cosb, sinb, w, fb.cpu(), 256)
     with pytest.raises(ValueError):
         melspec.mel_spectrogram(x, cosb, sinb, w.cpu(), fb, 256)
+    spec = melspec.prepare(cosb, sinb, w, fb, 256)
+    carry, chunk = x[:, :768].contiguous(), x[:, 768:]
+    with pytest.raises(ValueError, match="float32"):
+        spec.step(carry.double(), chunk.double())
+    with pytest.raises(ValueError):
+        spec.step(carry.cpu(), chunk)
+    with pytest.raises(ValueError, match="lead axes"):
+        spec.step(carry[:2], chunk)
+    with pytest.raises(ValueError, match="shorter than n_fft"):
+        spec.step(carry[:, :100], chunk[:, :100])
 
 
 def test_slice_on_card_matches_cpu(cuda_device):
@@ -88,12 +99,77 @@ def test_slice_on_card_matches_cpu(cuda_device):
     chunk = 14112
     x = np.random.default_rng(1).standard_normal((4, 3 * chunk)).astype(np.float32)
     g = log_mel_frontend(44100, 16000, 1024, 256, 128)
-    before = melspec.COUNT.launches
+    before, before_carry = melspec.COUNT.launches, melspec.COUNT.carry_launches
     got = g.scan_stream(torch.from_numpy(x).to(cuda_device), chunk).cpu()
     assert melspec.COUNT.launches == before + 3
+    assert melspec.COUNT.carry_launches == before_carry + 3  # each step reads its carry in place
     want = g.scan_stream(torch.from_numpy(x), chunk)
     assert got.shape == want.shape == (4, 60, 128)
     assert (got - want).abs().max().item() <= 1e-3
+
+
+# --- the melspec kernel's stream step: [carry | chunk] read in place ---
+
+
+def _carry_and_chunk(rows, carry_len, n, width, device, seed=0):
+    """A carry ``[rows, carry_len]`` and a chunk that is the first n columns
+    of ``[rows, width]``: rows ``width`` apart, a narrow view where width > n."""
+    rng = np.random.default_rng(seed)
+    carry = torch.from_numpy(rng.standard_normal((rows, carry_len)).astype(np.float32)).to(device)
+    wide = torch.from_numpy(rng.standard_normal((rows, width)).astype(np.float32)).to(device)
+    return carry, wide[:, :n]
+
+
+# the cell's step (768 carried + 5120 new samples at n_fft 1024) with the
+# chunk a narrow view of rows 5,359 apart (odd, as graph.align's buffer
+# leaves it) and 5,376 (a multiple of 4); a chunk shorter than the carry;
+# n_fft 400, hop 160 (the dense path) on a narrow view and on a short chunk
+@pytest.mark.parametrize(
+    "rows,carry_len,n,width,n_fft,hop,n_mels,path",
+    [
+        (2048, 768, 5120, 5359, 1024, 256, 128, "fft"),
+        (2048, 768, 5120, 5376, 1024, 256, 128, "fft"),
+        (64, 768, 256, 256, 1024, 256, 128, "fft"),
+        (64, 320, 1600, 1759, 400, 160, 80, "dense"),
+        (64, 320, 160, 160, 400, 160, 80, "dense"),
+    ],
+)
+def test_carry_launch_matches_plain(cuda_device, rows, carry_len, n, width, n_fft, hop, n_mels, path):
+    _, cosb, sinb, w, fb = _inputs((1, n_fft), n_fft, n_mels, "hann", cuda_device)
+    assert melspec.kernel_path(n_fft) == path
+    carry, chunk = _carry_and_chunk(rows, carry_len, n, width, cuda_device)
+    assert chunk.stride(0) == width
+    spec = melspec.prepare(cosb, sinb, w, fb, hop)
+    before = melspec.COUNT.launches, melspec.COUNT.carry_launches
+    new_carry, got = spec.step(carry, chunk)
+    torch.cuda.synchronize()
+    assert (melspec.COUNT.launches, melspec.COUNT.carry_launches) == (before[0] + 1, before[1] + 1)
+    buf = torch.cat([carry, chunk], dim=-1)
+    # each frame's arithmetic is the offline launch's on the concatenation
+    assert torch.equal(_bits(got), _bits(spec(buf)))
+    assert torch.equal(_bits(new_carry), _bits(buf[:, -carry_len:]))
+    want = melspec.mel_spectrogram_reference(buf, cosb, sinb, fb, hop)
+    assert got.shape == want.shape == (rows, (carry_len + n - n_fft) // hop + 1, n_mels)
+    # both fp32 with TF32 off; the sums are taken in another order. The dense
+    # path sums each bin's n_fft products in a row where cuBLAS tiles them:
+    # over 64 rows of white noise its largest gap in ln units read 1.7e-4,
+    # at bins far below their frame's loudest
+    assert (got - want).abs().max().item() <= (1e-4 if path == "fft" else 5e-4)
+
+
+def test_carry_launch_new_carry_is_its_own(cuda_device):
+    """The new carry is a fresh tensor: writing into the chunk's buffer after
+    the step changes neither it nor the next step's output."""
+    _, cosb, sinb, w, fb = _inputs((1, 1024), 1024, 128, "hann", cuda_device)
+    spec = melspec.prepare(cosb, sinb, w, fb, 256)
+    carry, chunk = _carry_and_chunk(64, 768, 256, 512, cuda_device, seed=1)  # the new carry spans both segments
+    _, nxt = _carry_and_chunk(64, 768, 5120, 5120, cuda_device, seed=2)
+    new_carry, _ = spec.step(carry, chunk)
+    kept = new_carry.clone()
+    want = spec.step(kept, nxt)[1]
+    chunk.fill_(7.0)
+    assert torch.equal(new_carry, kept)
+    assert torch.equal(spec.step(new_carry, nxt)[1], want)
 
 
 # --- the streaming resampler's kernel (csrc/resample.cu) against its plain version ---

@@ -94,6 +94,19 @@ def test_streamed_equals_offline(signal, port_streams, fused):
     np.testing.assert_allclose(g.compile()(torch.from_numpy(signal)).numpy(), offline, atol=5e-4)
 
 
+# LogMelSpec alone, at two lead axes: a chunk shorter than its 768-sample
+# carry (each new carry then spans both segments), one that is not a
+# multiple of it, and the benchmark's resampled chunk
+@pytest.mark.parametrize("chunk", [256, 1280, 5120])
+def test_logmel_node_streamed_equals_offline(rng, chunk):
+    g = tgraph.chain(tgraph.LogMelSpec(1024, 256, 128, center=False), input_rate=16000)
+    x = torch.from_numpy(rng.standard_normal((2, 2, 4 * 5120)).astype(np.float32))
+    streamed, offline = g.scan_stream(x, chunk), g.chain(x)
+    lat, n = g.stream_latency(chunk), offline.shape[-2]
+    assert lat == 3 and streamed.shape == (2, 2, n + lat, 128)
+    torch.testing.assert_close(streamed[..., lat:, :], offline, rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("node", ["LogMelSpec", "Spectrogram"])
 def test_center_offline_matches_jax(rng, node):
     x = rng.standard_normal((2, 70000)).astype(np.float32)

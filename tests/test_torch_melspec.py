@@ -1,6 +1,7 @@
 """The fused mel-spectrogram: the port's plain version against the JAX
-package's Pallas kernel (interpret mode), and the wrapper's checks. The
-hand-written kernel itself is tested on a card in test_torch_cuda.py."""
+package's Pallas kernel (interpret mode), the wrapper's carry form and
+prepared launches, and its checks. The hand-written kernel itself is tested
+on a card in test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -65,4 +66,47 @@ def test_wrapper_rejects_bad_inputs(rng):
         melspec.mel_spectrogram(x, cosb, sinb, w[:-1], fb, 128)  # the window of another n_fft
     with pytest.raises(ValueError):
         melspec.mel_spectrogram(x, cosb, sinb, w, fb.to("meta"), 128)
+    with pytest.raises(ValueError, match="lead axes"):
+        melspec.prepare(cosb, sinb, w, fb, 128).step(x[:1, :384], x)
 
+
+
+# the stream step's shape at two lead axes; a chunk shorter than the carry
+# (the new carry then spans both segments); a narrowed chunk whose rows lie
+# an odd stride apart; the dense path's n_fft 400 on a narrowed chunk
+@pytest.mark.parametrize(
+    "lead,carry_len,n,n_fft,hop,narrow",
+    [
+        ((2, 2), 768, 5120, 1024, 256, False),
+        ((3,), 768, 256, 1024, 256, False),
+        ((2,), 768, 5120, 1024, 256, True),
+        ((2,), 320, 1600, 400, 160, True),
+    ],
+)
+def test_cpu_carry_form_is_plain_over_the_cat(rng, lead, carry_len, n, n_fft, hop, narrow):
+    x, cosb, sinb, w, fb = _inputs(rng, (*lead, carry_len + n + 239), n_fft, 64)
+    carry = x[..., :carry_len].contiguous()
+    chunk = x[..., carry_len : carry_len + n]
+    if not narrow:
+        chunk = chunk.contiguous()
+    assert chunk.is_contiguous() != narrow
+    before = melspec.COUNT.launches, melspec.COUNT.carry_launches
+    new_carry, out = melspec.prepare(cosb, sinb, w, fb, hop).step(carry, chunk)
+    buf = torch.cat([carry, chunk], dim=-1)
+    assert torch.equal(out, melspec.mel_spectrogram_reference(buf, cosb, sinb, fb, hop))
+    assert torch.equal(new_carry, buf[..., -carry_len:])
+    assert out.shape == (*lead, (carry_len + n - n_fft) // hop + 1, 64)
+    assert (melspec.COUNT.launches, melspec.COUNT.carry_launches) == before  # the CPU path launches nothing
+
+
+def test_prepare_once_per_design_set(rng):
+    """One :class:`MelSpec` per set of design tensors and settings; an
+    in-place edit of the filterbank prepares anew."""
+    _, cosb, sinb, w, fb = _inputs(rng, (1, 8), 512, 40)
+    fb = fb.clone()
+    spec = melspec.prepare(cosb, sinb, w, fb, 128)
+    assert melspec.prepare(cosb, sinb, w, fb, 128) is spec
+    assert melspec.prepare(cosb, sinb, w, fb, 64) is not spec
+    assert melspec.prepare(cosb, sinb, w, fb, 128, log="db") is not spec
+    fb[:, 0] = 0.0
+    assert melspec.prepare(cosb, sinb, w, fb, 128) is not spec
