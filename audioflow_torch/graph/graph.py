@@ -17,7 +17,9 @@ the JAX package's checkpoint pytree (:mod:`audioflow_torch.convert`).
 Streamed output equals offline output shifted by ``stream_latency``: the
 delay alignment (``_delays``), the warmup zeroing (``_warmups``) and the
 nodes' two hooks into it (``wants_first_index``, ``warmup_passthrough``) are
-ported line for line.
+ported line for line. The schedule is a :class:`StreamPlan`, resolved once
+a chunk size; the step output shapes once a chunk size, lead shape and
+dtype. ``Graph``, ``Fork`` and ``Mix`` share one :func:`delay_line`.
 
 A ``scan_stream`` pass, its ``init_state``, each step, each node's step,
 the warmup zeroing and delay alignment around it (``graph.align``) and the
@@ -46,17 +48,84 @@ def _domains_compatible(out_d: str, in_d: str) -> bool:
     return out_d == in_d or "any" in (out_d, in_d)
 
 
-def _granularity(nodes) -> int:
-    """Smallest input chunk that every node of ``nodes`` takes in whole multiples."""
+def _input_multiple(m: int, ratio: Fraction) -> int:
+    """Smallest input chunk whose length scaled by ``ratio`` is a multiple of ``m``."""
+    return (m * ratio.denominator) // math.gcd(ratio.numerator, m * ratio.denominator)
+
+
+def _granularity(nodes, tails=()) -> int:
+    """Smallest input chunk that every node of ``nodes`` takes in whole
+    multiples, and after them every graph of ``tails`` (a Fork's branches)."""
     gran = 1
     ratio = Fraction(1)
     for node in nodes:
         m = node.chunk_multiple()
-        # need (chunk_in * ratio) % m == 0  ->  chunk_in multiple of:
-        need = (m * ratio.denominator) // math.gcd(ratio.numerator, m * ratio.denominator)
-        gran = math.lcm(gran, need)
+        gran = math.lcm(gran, _input_multiple(m, ratio))
         ratio *= Fraction(node.out_len(m), m)
+    for g in tails:
+        gran = math.lcm(gran, _input_multiple(g.chunk_granularity(), ratio))
     return gran
+
+
+def stream_axis(domain: str) -> int:
+    """The axis a stream in ``domain`` runs along: frames ``[..., n, bins]``, anything else ``[..., n]``."""
+    return -2 if domain == "frames" else -1
+
+
+def zero_preroll(x: torch.Tensor, n_zero: int, axis: int) -> torch.Tensor:
+    """A copy of ``x`` whose first ``n_zero`` positions along ``axis`` are
+    zeros: the warmup zeroing (see :meth:`Graph._warmups`)."""
+    x = x.clone()
+    x.narrow(axis % x.ndim, 0, n_zero).zero_()
+    return x
+
+
+def delay_line(pending: torch.Tensor, x: torch.Tensor, axis: int):
+    """``x`` delayed along ``axis`` by the width of ``pending``: ``(out,
+    new_pending)``, the first ``x.shape[axis]`` positions of ``[pending |
+    x]`` and the rest."""
+    axis %= x.ndim
+    n_out = x.shape[axis]
+    buf = torch.cat([pending, x], dim=axis)
+    return buf.narrow(axis, 0, n_out), buf.narrow(axis, n_out, buf.shape[axis] - n_out)
+
+
+def delay_buffer(spec, width: int, axis: int, device):
+    """The zero-filled ``pending`` of a :func:`delay_line` ``width`` wide along
+    ``axis``, for outputs of ``spec`` ``(shape, dtype)``; None for width 0."""
+    if width == 0:
+        return None
+    shape, dtype = spec
+    shape = list(shape)
+    shape[axis % len(shape)] = width
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+_MEMO = 8  # chunk sizes, and keys of output shapes, a graph keeps resolved
+
+
+def _memo(table: dict, key, make):
+    """``table[key]``, made by ``make()`` on a miss; the oldest of ``_MEMO`` entries makes way."""
+    hit = table.get(key)
+    if hit is None:
+        hit = make()
+        if len(table) >= _MEMO:
+            table.pop(next(iter(table)), None)
+        table[key] = hit
+    return hit
+
+
+@dataclass(frozen=True)
+class StreamPlan:
+    """The streaming schedule of a graph at one input chunk, a pure function
+    of its nodes and ``chunk_in``, resolved once (:meth:`Graph._plan`)."""
+
+    lens: tuple[int, ...]  # per-node chunk lengths [n_0 = chunk_in, ..., n_out]
+    delays: tuple[int, ...]  # per-node aligned delay, in that node's output units
+    warmups: tuple[int, ...]  # per-node upstream warmup, in that node's input units
+    latency: int  # in final-output units
+    widths: tuple[int, ...]  # per-node delay-line width: its delay less its own latency
+    axes: tuple[int, ...]  # the streamed axis of each node's output (its delay line)
 
 
 @dataclass(frozen=True)
@@ -73,20 +142,24 @@ class Graph:
             raise ConfigError("graph needs at least one node")
         bound = []
         rate = self.input_rate
-        domain = "samples"
+        domains = ["samples"]  # the domain entering each node, then the chain's output
         for i, node in enumerate(self.nodes):
-            if not _domains_compatible(domain, node.domain_in):
+            if not _domains_compatible(domains[-1], node.domain_in):
                 raise ConfigError(
                     f"node {i} ({type(node).__name__}) expects domain "
-                    f"{node.domain_in!r} but receives {domain!r}"
+                    f"{node.domain_in!r} but receives {domains[-1]!r}"
                 )
             node = node.bind(rate)
             bound.append(node)
             rate = node.rate_out(rate)
-            if node.domain_out != "any":
-                domain = node.domain_out
+            domains.append(domains[-1] if node.domain_out == "any" else node.domain_out)
         object.__setattr__(self, "nodes", tuple(bound))
         object.__setattr__(self, "output_rate", rate)
+        object.__setattr__(self, "_domains", tuple(domains))
+        # resolved once and kept: the plan by chunk_in, the step output
+        # specs by (chunk_in, lead_shape, dtype)
+        object.__setattr__(self, "_plans", {})
+        object.__setattr__(self, "_specs", {})
 
     # ------------------------------------------------------------------ chain
     def chain(self, x: torch.Tensor, taps: tuple[int, ...] = ()):
@@ -161,11 +234,7 @@ class Graph:
 
     @property
     def _out_domain(self) -> str:
-        domain = "samples"
-        for n in self.nodes:
-            if n.domain_out != "any":
-                domain = n.domain_out
-        return domain
+        return self._domains[-1]
 
     def _chunked_chain(self, x: torch.Tensor) -> torch.Tensor:
         """Offline semantics via the streaming machinery (see compile)."""
@@ -175,12 +244,12 @@ class Graph:
         t = x.shape[-1]
         # output shape of the whole-array chain, from a pass over meta tensors
         out_shape = self.chain(torch.empty(x.shape, dtype=x.dtype, device="meta")).shape
-        axis = (-2 if self._out_domain == "frames" else -1) % len(out_shape)
+        axis = stream_axis(self._out_domain) % len(out_shape)
         n_out = out_shape[axis]
         gran = self.chunk_granularity()
         chunk = gran * max(1, 16384 // gran)
-        lat = self.stream_latency(chunk)
-        m = self.chunk_lens(chunk)[-1]
+        plan = self._plan(chunk)
+        lat, m = plan.latency, plan.lens[-1]
         # enough zero-padded chunks that the trimmed window [lat, lat+n_out)
         # is fully produced
         n_chunks = -(-t // chunk)
@@ -258,19 +327,38 @@ class Graph:
         """
         return _granularity(self.nodes)
 
+    def _plan(self, chunk_in: int) -> StreamPlan:
+        """The streaming schedule at ``chunk_in``, resolved once."""
+        return _memo(self._plans, chunk_in, lambda: self._resolve(chunk_in))
+
+    def _resolve(self, chunk_in: int) -> StreamPlan:
+        nodes = self.nodes
+        lens = [chunk_in]
+        for node in nodes:
+            node.validate_chunk(lens[-1])
+            lens.append(node.out_len(lens[-1]))
+        # a node's intrinsic latency is padded up to the downstream chain's
+        # granularity (see _delays)
+        own = [node.latency(lens[i]) for i, node in enumerate(nodes)]
+        widths = [(-lat) % _granularity(nodes[i + 1 :]) if lat else 0 for i, lat in enumerate(own)]
+        delays = [lat + w for lat, w in zip(own, widths)]
+        warmups = []
+        for i in range(len(nodes)):
+            u = sum((Fraction(delays[j] * lens[i], lens[j + 1]) for j in range(i)), Fraction(0))
+            if u.denominator != 1:
+                raise AudioError(f"warmup of node {i} is not whole: {u}", code=ErrorCode.INTERNAL)
+            warmups.append(int(u))
+        latency = 0
+        for i, d in enumerate(delays):
+            if (d * lens[-1]) % lens[i + 1]:
+                raise AudioError(f"delay of node {i} is not whole", code=ErrorCode.INTERNAL)
+            latency += d * lens[-1] // lens[i + 1]
+        axes = tuple(stream_axis(node.domain_out) for node in nodes)
+        return StreamPlan(tuple(lens), tuple(delays), tuple(warmups), latency, tuple(widths), axes)
+
     def chunk_lens(self, chunk_in: int) -> list[int]:
         """Per-node streaming chunk lengths [n_0=chunk_in, ..., n_out]."""
-        lens = [chunk_in]
-        n = chunk_in
-        for node in self.nodes:
-            node.validate_chunk(n)
-            n = node.out_len(n)
-            lens.append(n)
-        return lens
-
-    def _downstream_granularity(self, i: int) -> int:
-        """Chunk granularity of nodes[i+1:] in units of node i's output."""
-        return _granularity(self.nodes[i + 1 :])
+        return list(self._plan(chunk_in).lens)
 
     def _delays(self, chunk_in: int) -> list[int]:
         """Per-node aligned streaming delay (in that node's output units).
@@ -282,14 +370,7 @@ class Graph:
         approximate offline. Padding the delay up to that granularity makes
         the streamed output an exact (whole-unit) shift of the offline one.
         """
-        lens = self.chunk_lens(chunk_in)
-        out = []
-        for i, node in enumerate(self.nodes):
-            lat = node.latency(lens[i])
-            align = self._downstream_granularity(i)
-            pad = (-lat) % align if lat else 0
-            out.append(lat + pad)
-        return out
+        return list(self._plan(chunk_in).delays)
 
     def _warmups(self, chunk_in: int) -> list[int]:
         """Cumulative upstream warmup per node, in that node's INPUT units.
@@ -300,31 +381,30 @@ class Graph:
         warmup region, which reproduces exactly what each node sees offline
         (zero prehistory): zero input is a fixpoint of every carried state.
         """
-        lens = self.chunk_lens(chunk_in)
-        delays = self._delays(chunk_in)
-        warm = []
-        for i in range(len(self.nodes)):
-            u = Fraction(0)
-            for j in range(i):
-                u += Fraction(delays[j] * lens[i], lens[j + 1])
-            if u.denominator != 1:
-                raise AudioError(f"warmup of node {i} is not whole: {u}", code=ErrorCode.INTERNAL)
-            warm.append(int(u))
-        return warm
+        return list(self._plan(chunk_in).warmups)
 
     def stream_latency(self, chunk_in: int) -> int:
         """Total streaming latency in final-output units (exact integer)."""
-        lens = self.chunk_lens(chunk_in)
-        delays = self._delays(chunk_in)
-        total = 0
-        for i, d in enumerate(delays):
-            if (d * lens[-1]) % lens[i + 1]:
-                raise AudioError(f"delay of node {i} is not whole", code=ErrorCode.INTERNAL)
-            total += d * lens[-1] // lens[i + 1]
-        return total
+        return self._plan(chunk_in).latency
 
-    def _stream_axis(self, node: Node) -> int:
-        return -2 if node.domain_out == "frames" else -1
+    def _carries(self, chunk_in: int, lead_shape, dtype, device) -> list:
+        lens = self._plan(chunk_in).lens
+        return [node.init_carry(lead_shape, n, dtype, device) for node, n in zip(self.nodes, lens)]
+
+    def _out_specs(self, chunk_in: int, lead_shape: tuple = (), dtype=torch.float32) -> tuple:
+        """Per-node step output ``(shape, dtype)``, from one pass over meta
+        tensors per ``(chunk_in, lead_shape, dtype)``, so nothing is computed."""
+
+        def shape_pass():
+            with trace.first("graph.shape_pass"):
+                x = torch.empty((*lead_shape, chunk_in), dtype=dtype, device="meta")
+                specs = []
+                for node, carry in zip(self.nodes, self._carries(chunk_in, lead_shape, dtype, "meta")):
+                    _, x = node.step(carry, x)
+                    specs.append((x.shape, x.dtype))
+                return tuple(specs)
+
+        return _memo(self._specs, (chunk_in, tuple(lead_shape), dtype), shape_pass)
 
     def init_state(
         self, chunk_in: int, lead_shape: tuple = (), dtype=torch.float32, device=None,
@@ -333,38 +413,15 @@ class Graph:
 
         ``pendings[i]`` is the zero-filled delay-alignment buffer for node i
         (None when no alignment is needed); shapes come from one step over
-        meta tensors, so nothing is computed. ``k`` is the int chunk counter.
+        meta tensors per key (:meth:`_out_specs`). ``k`` is the int chunk
+        counter.
         """
         self._check_streamable()
         with trace.span("graph.init_state", device):
-            lens = self.chunk_lens(chunk_in)
-            delays = self._delays(chunk_in)
-
-            def carries_on(dev):
-                out, n = [], chunk_in
-                for node in self.nodes:
-                    out.append(node.init_carry(lead_shape, n, dtype, dev))
-                    n = node.out_len(n)
-                return out
-
-            # shape pass: per-node step outputs over meta tensors
-            with trace.first("graph.shape_pass"):
-                x = torch.empty((*lead_shape, chunk_in), dtype=dtype, device="meta")
-                out_specs = []
-                for node, carry in zip(self.nodes, carries_on("meta")):
-                    _, x = node.step(carry, x)
-                    out_specs.append(x)
-            pendings = []
-            for i, node in enumerate(self.nodes):
-                pad = delays[i] - node.latency(lens[i])
-                if pad == 0:
-                    pendings.append(None)
-                    continue
-                spec = out_specs[i]
-                shape = list(spec.shape)
-                shape[self._stream_axis(node) % len(shape)] = pad
-                pendings.append(torch.zeros(shape, dtype=spec.dtype, device=device))
-            return carries_on(device), pendings, 0
+            plan = self._plan(chunk_in)
+            specs = self._out_specs(chunk_in, lead_shape, dtype)
+            pendings = [delay_buffer(spec, w, axis, device) for spec, w, axis in zip(specs, plan.widths, plan.axes)]
+            return self._carries(chunk_in, lead_shape, dtype, device), pendings, 0
 
     def stream_step(self, state, chunk: torch.Tensor):
         """One fixed-shape streaming step through every node.
@@ -381,32 +438,23 @@ class Graph:
         # alignment's, so it takes its device interval from theirs and
         # records no events of its own
         with trace.span("graph.stream_step", index=k):
-            lens = self.chunk_lens(chunk.shape[-1])
-            warmups = self._warmups(chunk.shape[-1])
+            plan = self._plan(chunk.shape[-1])
             new_carries, new_pendings = [], []
             x = chunk
-            domain = "samples"
             for i, (node, carry, pending) in enumerate(zip(self.nodes, carries, pendings)):
-                n_zero = min(lens[i], warmups[i] - k * lens[i])
+                first = plan.warmups[i] - k * plan.lens[i]
+                n_zero = min(plan.lens[i], first)
                 if n_zero > 0 and not node.warmup_passthrough:
                     with trace.span("graph.align", x, i):
-                        axis = (-2 if domain == "frames" else -1) % x.ndim
-                        x = x.clone()
-                        x.narrow(axis, 0, n_zero).zero_()
-                if node.domain_out != "any":
-                    domain = node.domain_out
+                        x = zero_preroll(x, n_zero, stream_axis(self._domains[i]))
                 with trace.span(node.trace_name, x, i):
                     if node.wants_first_index:
-                        carry, x = node.step(carry, x, first_index=warmups[i] - k * lens[i])
+                        carry, x = node.step(carry, x, first_index=first)
                     else:
                         carry, x = node.step(carry, x)
                 if pending is not None:
                     with trace.span("graph.align", x, i):
-                        axis = self._stream_axis(node) % x.ndim
-                        n_out = x.shape[axis]
-                        buf = torch.cat([pending, x], dim=axis)
-                        x = buf.narrow(axis, 0, n_out)
-                        pending = buf.narrow(axis, n_out, buf.shape[axis] - n_out)
+                        x, pending = delay_line(pending, x, plan.axes[i])
                 new_carries.append(carry)
                 new_pendings.append(pending)
         return (new_carries, new_pendings, k + 1), x
@@ -419,23 +467,11 @@ class Graph:
         are concatenated along the streamed axis.
         """
         self._check_streamable()
-        x = as_tensor(x, device)
-        t = x.shape[-1]
-        if t % chunk_in:
-            raise AudioError(
-                f"signal length {t} not a multiple of chunk_in {chunk_in}; pad first",
-                code=ErrorCode.SHAPE_MISMATCH,
-            )
+        x = _signal(x, chunk_in, device)
         with trace.span("graph.scan_stream", x):
-            state = self.init_state(chunk_in, x.shape[:-1], x.dtype, x.device)
-            outs = []
-            for c in range(t // chunk_in):
-                state, out = self.stream_step(state, x[..., c * chunk_in : (c + 1) * chunk_in])
-                outs.append(out)
-            # the streamed axis follows the lead axes, whatever the domain (a
-            # Vad's states are [..., n_frames])
+            outs = _scan(self, x, chunk_in)
             with trace.span("graph.concat", x):
-                return torch.cat(outs, dim=x.ndim - 1)
+                return _cat_chunks(outs, x)
 
     def compile_stream(self, donate: bool = True) -> Callable:
         """``step(state, chunk) -> (state, out)``: :meth:`stream_step`.
@@ -516,20 +552,8 @@ class Fork:
 
     # ----------------------------------------------------------- streaming
     def chunk_granularity(self) -> int:
-        gran = self.trunk.chunk_granularity()
         # a branch's granularity maps back through the trunk's rate ratio
-        ratio = Fraction(1)
-        for node in self.trunk.nodes:
-            m = node.chunk_multiple()
-            ratio *= Fraction(node.out_len(m), m)
-        for _, g in self.branches:
-            m = g.chunk_granularity()
-            need = (m * ratio.denominator) // math.gcd(ratio.numerator, m * ratio.denominator)
-            gran = math.lcm(gran, need)
-        return gran
-
-    def _trunk_out_len(self, chunk_in: int) -> int:
-        return self.trunk.chunk_lens(chunk_in)[-1]
+        return _granularity(self.trunk.nodes, [g for _, g in self.branches])
 
     def _branch_pads(self, chunk_in: int) -> dict:
         """The trunk's latency padded up to each branch's granularity, so
@@ -538,12 +562,9 @@ class Fork:
         trunk_lat = self.trunk.stream_latency(chunk_in)
         return {k: (-trunk_lat) % g.chunk_granularity() if trunk_lat else 0 for k, g in self.branches}
 
-    def _trunk_axis(self) -> int:
-        return -2 if self.trunk._out_domain == "frames" else -1
-
     def stream_latency(self, chunk_in: int) -> dict:
         """Per-branch streaming latency in that branch's output units."""
-        mid = self._trunk_out_len(chunk_in)
+        mid = self.trunk.chunk_lens(chunk_in)[-1]
         trunk_lat = self.trunk.stream_latency(chunk_in)
         pads = self._branch_pads(chunk_in)
         out = {}
@@ -556,52 +577,36 @@ class Fork:
         return out
 
     def init_state(self, chunk_in: int, lead_shape: tuple = (), dtype=torch.float32, device=None):
-        mid = self._trunk_out_len(chunk_in)
+        mid = self.trunk.chunk_lens(chunk_in)[-1]
         pads = self._branch_pads(chunk_in)
         trunk_state = self.trunk.init_state(chunk_in, lead_shape, dtype, device)
-        spec = self.trunk.stream_step(
-            self.trunk.init_state(chunk_in, lead_shape, dtype, "meta"),
-            torch.empty((*lead_shape, chunk_in), dtype=dtype, device="meta"),
-        )[1]
-        pend = {}
-        for k, _ in self.branches:
-            if pads[k] == 0:
-                pend[k] = None
-                continue
-            shape = list(spec.shape)
-            shape[self._trunk_axis() % len(shape)] = pads[k]
-            pend[k] = torch.zeros(shape, dtype=spec.dtype, device=device)
+        spec = self.trunk._out_specs(chunk_in, lead_shape, dtype)[-1]
+        axis = stream_axis(self.trunk._out_domain)
         return (
             trunk_state,
             {k: g.init_state(mid, lead_shape, dtype, device) for k, g in self.branches},
-            pend,
+            {k: delay_buffer(spec, pads[k], axis, device) for k, _ in self.branches},
         )
 
     def stream_step(self, state, chunk: torch.Tensor):
         trunk_state, branch_states, pend = state
         step_idx = trunk_state[2]  # the trunk's chunk counter drives the preroll zeroing
         trunk_state, y = self.trunk.stream_step(trunk_state, chunk)
-        axis = self._trunk_axis() % y.ndim
-        trunk_lat = self.trunk.stream_latency(chunk.shape[-1])
+        axis = stream_axis(self.trunk._out_domain) % y.ndim
         y_zeroed = y
-        n_zero = min(y.shape[axis], trunk_lat - step_idx * y.shape[axis])
+        n_zero = min(y.shape[axis], self.trunk.stream_latency(chunk.shape[-1]) - step_idx * y.shape[axis])
         if n_zero > 0:
             # zero the trunk's own preroll so that no branch carry sees it
             # (Graph._warmups within a chain); a branch whose head node
             # consumes the preroll (warmup_passthrough) gets the raw output
-            y_zeroed = y.clone()
-            y_zeroed.narrow(axis, 0, n_zero).zero_()
+            y_zeroed = zero_preroll(y, n_zero, axis)
         new_states, new_pend, outs = {}, {}, {}
         for k, g in self.branches:
-            yk = y if g.nodes[0].warmup_passthrough else y_zeroed
-            pk = pend[k]
+            yk, pk = (y if g.nodes[0].warmup_passthrough else y_zeroed), pend[k]
             if pk is not None:
                 # the JAX package's order: a padded branch takes the raw
                 # trunk output, its preroll not zeroed
-                n_out = y.shape[axis]
-                buf = torch.cat([pk, y], dim=axis)
-                yk = buf.narrow(axis, 0, n_out)
-                pk = buf.narrow(axis, n_out, buf.shape[axis] - n_out)
+                yk, pk = delay_line(pk, y, axis)
             new_states[k], outs[k] = g.stream_step(branch_states[k], yk)
             new_pend[k] = pk
         return (trunk_state, new_states, new_pend), outs
@@ -612,20 +617,37 @@ class Fork:
 
     def scan_stream(self, x, chunk_in: int, device=None) -> dict:
         """Stream a whole signal; a dict of each branch's concatenated output."""
-        x = as_tensor(x, device)
-        t = x.shape[-1]
-        if t % chunk_in:
-            raise AudioError(
-                f"signal length {t} not a multiple of chunk_in {chunk_in}; pad first",
-                code=ErrorCode.SHAPE_MISMATCH,
-            )
-        state = self.init_state(chunk_in, x.shape[:-1], x.dtype, x.device)
-        outs = {k: [] for k, _ in self.branches}
-        for c in range(t // chunk_in):
-            state, out = self.stream_step(state, x[..., c * chunk_in : (c + 1) * chunk_in])
-            for k, v in out.items():
-                outs[k].append(v)
-        return {k: torch.cat(v, dim=x.ndim - 1) for k, v in outs.items()}
+        x = _signal(x, chunk_in, device)
+        outs = _scan(self, x, chunk_in)
+        return {k: _cat_chunks([o[k] for o in outs], x) for k, _ in self.branches}
+
+
+def _signal(x, chunk_in: int, device) -> torch.Tensor:
+    """``x`` as a tensor (see :func:`~audioflow_torch.utils.as_tensor`), checked to stream in whole chunks."""
+    x = as_tensor(x, device)
+    if x.shape[-1] % chunk_in:
+        raise AudioError(
+            f"signal length {x.shape[-1]} not a multiple of chunk_in {chunk_in}; pad first",
+            code=ErrorCode.SHAPE_MISMATCH,
+        )
+    return x
+
+
+def _scan(stream, x: torch.Tensor, chunk_in: int) -> list:
+    """The outputs of a :class:`Graph`'s or :class:`Fork`'s ``stream_step``
+    over ``x [..., T]`` chunk by chunk, from its ``init_state``."""
+    state = stream.init_state(chunk_in, x.shape[:-1], x.dtype, x.device)
+    outs = []
+    for c in range(x.shape[-1] // chunk_in):
+        state, out = stream.stream_step(state, x[..., c * chunk_in : (c + 1) * chunk_in])
+        outs.append(out)
+    return outs
+
+
+def _cat_chunks(outs: list, x: torch.Tensor) -> torch.Tensor:
+    # the streamed axis follows the lead axes, whatever the domain (a Vad's
+    # states are [..., n_frames])
+    return torch.cat(outs, dim=x.ndim - 1)
 
 
 def fork(trunk: Graph, name: str = "fork", **branches: Graph) -> Fork:

@@ -1224,38 +1224,26 @@ class Mix(Node):
     def latency(self, n_in):
         return max(g.stream_latency(n_in) for g in self._graphs())
 
-    def _stream_axis(self):
-        return -2 if self.domain_out == "frames" else -1
-
     def init_carry(self, lead_shape, n_in, dtype=torch.float32, device=None):
+        from .graph import delay_buffer, stream_axis
+
         lat = self.latency(n_in)
         states, pads = [], []
         for g in self._graphs():
             states.append(g.init_state(n_in, lead_shape, dtype, device))
-            need = lat - g.stream_latency(n_in)
-            if need == 0:
-                pads.append(None)
-                continue
-            spec = g.stream_step(
-                g.init_state(n_in, lead_shape, dtype, "meta"),
-                torch.empty((*lead_shape, n_in), dtype=dtype, device="meta"),
-            )[1]
-            shape = list(spec.shape)
-            shape[self._stream_axis() % len(shape)] = need
-            pads.append(torch.zeros(shape, dtype=spec.dtype, device=device))
+            spec = g._out_specs(n_in, lead_shape, dtype)[-1]
+            pads.append(delay_buffer(spec, lat - g.stream_latency(n_in), stream_axis(self.domain_out), device))
         return tuple(states), tuple(pads)
 
     def step(self, carry, chunk):
+        from .graph import delay_line, stream_axis
+
         states, pads = carry
         new_states, new_pads, outs = [], [], []
         for g, st, pend in zip(self._graphs(), states, pads):
             st, y = g.stream_step(st, chunk)
             if pend is not None:
-                axis = self._stream_axis() % y.ndim
-                n_out = y.shape[axis]
-                buf = torch.cat([pend, y], dim=axis)
-                y = buf.narrow(axis, 0, n_out)
-                pend = buf.narrow(axis, n_out, buf.shape[axis] - n_out)
+                y, pend = delay_line(pend, y, stream_axis(self.domain_out))
             new_states.append(st)
             new_pads.append(pend)
             outs.append(y)

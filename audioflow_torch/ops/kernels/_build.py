@@ -9,6 +9,10 @@ the flags, so an edited source is never served by an old build. Nothing is built
 imported. Each source's nvcc run and library load is timed once per process
 in ``obs.trace``'s one-time table (``kernels.build.<name>``,
 ``kernels.load.<name>``).
+
+The wrappers share the rest of the launch path from here: :func:`launch`,
+:func:`check_mirror`, :class:`LaunchCount`, the row layout the kernels read
+(:func:`_rows`) and the shared memory a block may use.
 """
 
 from __future__ import annotations
@@ -20,7 +24,10 @@ import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from pathlib import Path
+
+import torch
 
 from ...errors import AudioError, ErrorCode
 from ...obs import trace
@@ -33,7 +40,11 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in BUILD_LOG
 )
 
+# shared memory one block may use on Hopper (227 KB of the SM's 256 KB)
+_MAX_SMEM = 232_448
+
 _LIBS: dict[str, ctypes.CDLL] = {}
+_MIRRORED: set = set()  # (kernel, shape) whose mirrors the library confirmed
 _LOCK = threading.Lock()
 BUILD_LOG: dict[str, str] = {}  # name -> nvcc's output of this process's build
 
@@ -116,3 +127,62 @@ def load(name: str) -> ctypes.CDLL:
             with trace.first(f"kernels.load.{name}"):
                 lib = _LIBS[name] = ctypes.CDLL(str(_library(name)))
         return lib
+
+
+@dataclass
+class LaunchCount:
+    """Kernel launches since the last reset (a plain int: set it to 0 to reset)."""
+
+    launches: int = 0
+
+
+def launch(kernel: str, count: LaunchCount, entry, device: torch.device, *args) -> None:
+    """``entry(*args, stream)``, a library entry that launches ``kernel`` on
+    ``stream``, the raw current stream of the CUDA ``device``; counted in
+    ``count``. A nonzero ``cudaError`` raises."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():  # torch.cuda.device's switch costs more host time than the rest
+        err = entry(*args, stream)
+    else:  # the runtime launches on the calling thread's device
+        with torch.cuda.device(device):
+            err = entry(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
+    count.launches += 1
+
+
+def check_mirror(kernel: str, shape: tuple, mirror, library) -> None:
+    """Raise where a wrapper's ``mirror`` of ``kernel``'s constants at
+    ``shape`` differs from the library's own, ``library()``; a kernel and
+    shape that agreed are not asked again."""
+    if (kernel, shape) in _MIRRORED:
+        return
+    got = library()
+    if got != mirror:
+        raise RuntimeError(f"the wrapper's mirrors of {kernel}.cu at {shape} are out of date: {mirror} vs {got}")
+    _MIRRORED.add((kernel, shape))
+
+
+def _row_stride(t: torch.Tensor) -> int | None:
+    """The one stride between consecutive rows of ``t [..., n]`` taken as
+    ``[rows, n]``, or None where its layout has none (or its samples are not
+    adjacent)."""
+    shape, strides = t.shape, t.stride()
+    if shape[-1] > 1 and strides[-1] != 1:
+        return None
+    if t.ndim == 1:
+        return shape[-1]
+    row = strides[-2]
+    for i in range(t.ndim - 3, -1, -1):
+        if shape[i] > 1 and strides[i] != strides[i + 1] * shape[i + 1]:
+            return None
+    return row
+
+
+def _rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``t`` and its row stride, copied first where its layout has none."""
+    stride = _row_stride(t)
+    if stride is None:
+        t = t.contiguous()
+        stride = t.shape[-1]
+    return t, stride

@@ -48,11 +48,8 @@ from .._mm import mm
 from ..framing import frame, overlap_add
 from ..stft import Banks, istft, kernel_banks, padded_window
 from . import fft
-from ._build import load
-from .melspec import LaunchCount
+from ._build import _MAX_SMEM, LaunchCount, check_mirror, launch, load
 
-# shared memory one block may use on Hopper (227 KB of the SM's 256 KB)
-_MAX_SMEM = 232_448
 # mirrors of dft.cuh's kFrames and kRows and of griffinlim.cu's FFT-path
 # constants, so that supported() and kernel_path() need no build; the
 # wrapper checks the mirrors against the library
@@ -231,27 +228,20 @@ def _launch(r_re, r_im, r2_re, r2_im, mag, momentum: float, d: Designs):
     n_fft, (n_rows, hop) = d.banks.icos.shape[1], d.inv.shape
     if batch * max(n_frames * n_bins, n_rows * hop) >= 2**31:
         raise ValueError(f"batch {batch} x {n_frames} frames is too large for one call")
-    lib = _lib()
-    tile, smem = lib.griffinlim_path(n_fft, hop), lib.griffinlim_smem_bytes(n_fft, hop)
-    if (tile, smem) != (fft_tile(n_fft, hop), smem_bytes(n_fft, hop)):
-        raise RuntimeError(
-            f"fft_tile()/smem_bytes() are out of date with griffinlim.cu: "
-            f"{(fft_tile(n_fft, hop), smem_bytes(n_fft, hop))} vs {(tile, smem)}"
-        )
+    lib, tile = _lib(), fft_tile(n_fft, hop)
+    check_mirror("griffinlim", (n_fft, hop), (tile, smem_bytes(n_fft, hop)),
+                 lambda: (lib.griffinlim_path(n_fft, hop), lib.griffinlim_smem_bytes(n_fft, hop)))
     # the row stream is scratch of the dense path only
     sig = None if tile else torch.empty((batch, n_rows, hop), dtype=torch.float32, device=mag.device)
     o_re, o_im = torch.empty_like(mag), torch.empty_like(mag)
     c1, m = _coefficients(momentum)
-    with torch.cuda.device(mag.device):
-        err = lib.griffinlim_iter_launch(
-            *(p.data_ptr() for p in planes), d.window.data_ptr(), d.twiddles.data_ptr(),
-            *(t.data_ptr() for t in d.banks), d.inv.data_ptr(),
-            None if sig is None else sig.data_ptr(), o_re.data_ptr(), o_im.data_ptr(),
-            batch, n_frames, n_fft, hop, c1, m, torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"griffinlim kernel launch failed: cudaError {err}")
-    COUNT.launches += 1
+    launch(
+        "griffinlim", COUNT, lib.griffinlim_iter_launch, mag.device,
+        *(p.data_ptr() for p in planes), d.window.data_ptr(), d.twiddles.data_ptr(),
+        *(t.data_ptr() for t in d.banks), d.inv.data_ptr(),
+        None if sig is None else sig.data_ptr(), o_re.data_ptr(), o_im.data_ptr(),
+        batch, n_frames, n_fft, hop, c1, m,
+    )
     return o_re, o_im
 
 

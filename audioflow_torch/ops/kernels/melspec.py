@@ -42,12 +42,10 @@ from ...utils.cache import BoundedCache, on_device
 from ..framing import frame, num_frames
 from ..mel import floor_log
 from . import fft
-from ._build import load
+from ._build import _MAX_SMEM, LaunchCount, _row_stride, _rows, check_mirror, launch, load
 
 LOG_MODES = {None: 0, "none": 0, "ln": 1, "log10": 2, "db": 3}
 
-# shared memory one block may use on Hopper (227 KB of the SM's 256 KB)
-_MAX_SMEM = 232_448
 # mirrors of melspec.cu's kFrames and kFftFrames, so that kernel_path()
 # needs no build; the wrapper checks the mirrors against the library
 _FRAMES = 16
@@ -57,13 +55,6 @@ _FFT_FRAMES = 8
 _BANDS = BoundedCache(maxsize=16)
 # prepared launches of mel_spectrogram, keyed by its designs' identities
 _PREPARED = BoundedCache(maxsize=16)
-
-
-@dataclass
-class LaunchCount:
-    """Kernel launches since the last reset (a plain int: set it to 0 to reset)."""
-
-    launches: int = 0
 
 
 @dataclass
@@ -99,9 +90,7 @@ def _lib() -> ctypes.CDLL:
     lib.melspec_path.restype = ctypes.c_int
     lib.melspec_params_bytes.argtypes = []
     lib.melspec_params_bytes.restype = ctypes.c_int
-    if lib.melspec_params_bytes() != ctypes.sizeof(_Params):
-        raise RuntimeError(f"_Params is out of date with melspec.cu: {ctypes.sizeof(_Params)} bytes, "
-                           f"the library's {lib.melspec_params_bytes()}")
+    check_mirror("melspec", ("_Params bytes",), ctypes.sizeof(_Params), lib.melspec_params_bytes)
     return lib
 
 
@@ -169,31 +158,6 @@ def _device_bands(fb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hit[1], hit[2]
 
 
-def _row_stride(t: torch.Tensor) -> int | None:
-    """The one stride between consecutive rows of ``t [..., n]`` taken as
-    ``[rows, n]``, or None where its layout has none (or its samples are not
-    adjacent)."""
-    shape, strides = t.shape, t.stride()
-    if shape[-1] > 1 and strides[-1] != 1:
-        return None
-    if t.ndim == 1:
-        return shape[-1]
-    row = strides[-2]
-    for i in range(t.ndim - 3, -1, -1):
-        if shape[i] > 1 and strides[i] != strides[i + 1] * shape[i + 1]:
-            return None
-    return row
-
-
-def _rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """``t`` and its row stride, copied first where its layout has none."""
-    stride = _row_stride(t)
-    if stride is None:
-        t = t.contiguous()
-        stride = t.shape[-1]
-    return t, stride
-
-
 def mel_spectrogram_reference(
     x: torch.Tensor,
     cosb: torch.Tensor,
@@ -257,12 +221,9 @@ class MelSpec:
             raise ValueError("the kernel takes contiguous designs")
         n_bins = cosb.shape[1]
         lib = _lib()
-        frames, smem = lib.melspec_path(self.n_fft), lib.melspec_smem_bytes(self.n_fft, n_bins)
-        if (frames, smem) != (fft_frames(self.n_fft), smem_bytes(self.n_fft)):
-            raise RuntimeError(
-                f"fft_frames()/smem_bytes() are out of date with melspec.cu: "
-                f"{(fft_frames(self.n_fft), smem_bytes(self.n_fft))} vs {(frames, smem)}"
-            )
+        frames, smem = fft_frames(self.n_fft), smem_bytes(self.n_fft)
+        check_mirror("melspec", (self.n_fft, n_bins), (frames, smem),
+                     lambda: (lib.melspec_path(self.n_fft), lib.melspec_smem_bytes(self.n_fft, n_bins)))
         if smem > _MAX_SMEM:
             raise ValueError(f"n_fft {self.n_fft} needs {smem} B of shared memory per block, over {_MAX_SMEM}")
         tw = on_device(fft.twiddles(self.n_fft), self.device) if frames else None
@@ -324,16 +285,8 @@ class MelSpec:
         n_frames = num_frames(t, self.n_fft, self.hop)
         out = torch.empty((*lead, n_frames, self.n_mels), dtype=torch.float32, device=device)
         new_carry = torch.empty((*lead, c), dtype=torch.float32, device=device) if c else carry[..., :0]
-        args = (self._params, carry.data_ptr(), carry_row, c, chunk.data_ptr(), chunk_row, n, out.data_ptr(),
-                new_carry.data_ptr(), rows, torch._C._cuda_getCurrentRawStream(device.index))
-        if device.index == torch.cuda.current_device():  # torch.cuda.device's switch costs more host time than the rest
-            err = _lib().melspec_launch(*args)
-        else:  # the runtime launches on the calling thread's device
-            with torch.cuda.device(device):
-                err = _lib().melspec_launch(*args)
-        if err != 0:
-            raise RuntimeError(f"melspec kernel launch failed: cudaError {err}")
-        COUNT.launches += 1
+        launch("melspec", COUNT, _lib().melspec_launch, device, self._params, carry.data_ptr(), carry_row, c,
+               chunk.data_ptr(), chunk_row, n, out.data_ptr(), new_carry.data_ptr(), rows)
         if c:
             COUNT.carry_launches += 1
         return new_carry, out

@@ -31,8 +31,7 @@ import torch
 from ...utils import cdiv
 from ...utils.cache import BoundedCache
 from .._mm import check_precision
-from ._build import load
-from .melspec import LaunchCount, _rows
+from ._build import LaunchCount, _rows, check_mirror, launch, load
 
 # outputs of a group, mirror of resample.cu's kJ
 GROUP = 8
@@ -64,9 +63,7 @@ def _lib() -> ctypes.CDLL:
     lib.resample_path.restype = ctypes.c_int
     lib.resample_params_bytes.argtypes = []
     lib.resample_params_bytes.restype = ctypes.c_int
-    if lib.resample_params_bytes() != ctypes.sizeof(_Params):
-        raise RuntimeError(f"_Params is out of date with resample.cu: {ctypes.sizeof(_Params)} bytes, "
-                           f"the library's {lib.resample_params_bytes()}")
+    check_mirror("resample", ("_Params bytes",), ctypes.sizeof(_Params), lib.resample_params_bytes)
     return lib
 
 
@@ -176,16 +173,8 @@ def resample_stream_step(
     y = torch.empty((*lead, plan.n_out_chunk), dtype=torch.float32, device=device)
     new_carry = torch.empty((*lead, plan.hist), dtype=torch.float32, device=device) if plan.hist else carry
     vec_in = chunk.data_ptr() % 16 == 0 and (rows == 1 or chunk_row % 4 == 0)
-    args = (params, chunk.data_ptr(), chunk_row, carry.data_ptr(), carry_row, y.data_ptr(), new_carry.data_ptr(),
-            rows, vec_in, torch._C._cuda_getCurrentRawStream(device.index))
-    if device.index == torch.cuda.current_device():  # torch.cuda.device's switch costs more host time than all else here
-        err = _lib().resample_launch(*args)
-    else:  # the runtime launches on the calling thread's device
-        with torch.cuda.device(device):
-            err = _lib().resample_launch(*args)
-    if err != 0:
-        raise RuntimeError(f"resample kernel launch failed: cudaError {err}")
-    COUNT.launches += 1
+    launch("resample", COUNT, _lib().resample_launch, device, params, chunk.data_ptr(), chunk_row, carry.data_ptr(),
+           carry_row, y.data_ptr(), new_carry.data_ptr(), rows, vec_in)
     return new_carry, y
 
 

@@ -51,11 +51,8 @@ from .._mm import PRECISIONS, mm
 from ..framing import frame, overlap_add
 from ..stft import Banks, kernel_banks, pad_center, padded_window
 from . import fft
-from ._build import load
-from .melspec import LaunchCount
+from ._build import _MAX_SMEM, LaunchCount, check_mirror, launch, load
 
-# shared memory one block may use on Hopper (227 KB of the SM's 256 KB)
-_MAX_SMEM = 232_448
 # mirrors of csrc/timestretch.cu's constants (dft.cuh's kFrames and kRows,
 # the FFT path's warps per block and synthesis tile), so that supported()
 # and kernel_path() need no build; the wrapper checks the mirrors against
@@ -368,25 +365,19 @@ def _launch(x: torch.Tensor, plan: Plan, window: str) -> torch.Tensor:
     batch, (n_fft, hop) = x.shape[0], (plan.n_fft, plan.hop)
     if batch * max(plan.n_in, plan.n_out) * plan.n_bins >= 2**31 or plan.t >= 2**31:
         raise ValueError(f"batch {batch} x {plan.n_out} frames is too large for one call")
-    lib = _lib()
-    want = (fft_tile(n_fft, hop), smem_bytes(n_fft, hop))
-    got = (lib.timestretch_path(n_fft, hop), lib.timestretch_smem_bytes(n_fft, hop))
-    if got != want:
-        raise RuntimeError(f"fft_tile()/smem_bytes() are out of date with timestretch.cu: {want} vs {got}")
-    designs = _designs(n_fft, window, x.device, want[0] > 0)
+    lib, tile = _lib(), fft_tile(n_fft, hop)
+    check_mirror("timestretch", (n_fft, hop), (tile, smem_bytes(n_fft, hop)),
+                 lambda: (lib.timestretch_path(n_fft, hop), lib.timestretch_smem_bytes(n_fft, hop)))
+    designs = _designs(n_fft, window, x.device, tile > 0)
     norm = on_device(wola_norm(plan, window), x.device)
     spec = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
     re, im = spec((batch, plan.n_in, plan.n_bins)), spec((batch, plan.n_in, plan.n_bins))
     s_re, s_im = spec((batch, plan.n_out, plan.n_bins)), spec((batch, plan.n_out, plan.n_bins))
     out = spec((batch, plan.out_len))
-    with torch.cuda.device(x.device):
-        err = lib.timestretch_launch(
-            x.data_ptr(), *(None if t is None else t.data_ptr() for t in designs),
-            norm.data_ptr(), re.data_ptr(), im.data_ptr(), s_re.data_ptr(), s_im.data_ptr(), out.data_ptr(),
-            batch, plan.t, n_fft, hop, plan.p, plan.q, plan.n_in, plan.n_out, plan.out_len,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"timestretch kernel launch failed: cudaError {err}")
-    COUNT.launches += 1
+    launch(
+        "timestretch", COUNT, lib.timestretch_launch, x.device,
+        x.data_ptr(), *(None if t is None else t.data_ptr() for t in designs),
+        norm.data_ptr(), re.data_ptr(), im.data_ptr(), s_re.data_ptr(), s_im.data_ptr(), out.data_ptr(),
+        batch, plan.t, n_fft, hop, plan.p, plan.q, plan.n_in, plan.n_out, plan.out_len,
+    )
     return out

@@ -30,11 +30,8 @@ import numpy as np
 import torch
 
 from ..sequence import max_plus_band_argmax
-from ._build import load
-from .melspec import LaunchCount
+from ._build import _MAX_SMEM, LaunchCount, check_mirror, launch, load
 
-# shared memory one block may use on Hopper (227 KB of the SM's 256 KB)
-_MAX_SMEM = 232_448
 # the int8 range of centred offsets: half <= 127
 _MAX_KERNEL_TAPS = 255
 # mirrors of csrc/viterbi.cu's shape rule, so that supported() and
@@ -198,28 +195,21 @@ def _launch(ov, ou, lk, log_init, log_stay, log_switch):
         raise ValueError(f"unsupported band for the kernel: n_bins={n}, kernel_len={k}")
     if f * 2 * b * n >= 2**31:
         raise ValueError(f"{f} frames x {b} rows x {n} bins is too large for one call")
-    lib = _lib()
-    c = kernel_path(b, n, k)
-    got = (lib.viterbi_cluster(b, n, k), lib.viterbi_smem_bytes(b, n, k))
-    if got != (c, smem_bytes(n, k, c)):
-        raise RuntimeError(
-            f"kernel_path()/smem_bytes() are out of date with viterbi.cu: {(c, smem_bytes(n, k, c))} vs {got}"
-        )
+    lib, c = _lib(), kernel_path(b, n, k)
+    check_mirror("viterbi", (b, n, k), (c, smem_bytes(n, k, c)),
+                 lambda: (lib.viterbi_cluster(b, n, k), lib.viterbi_smem_bytes(b, n, k)))
     ov, ou = ov.contiguous(), ou.contiguous()
     lk = lk.to(ov.device)
     dv = torch.empty((b, n), dtype=torch.float32, device=ov.device)
     du = torch.empty_like(dv)
     off = torch.empty((f, 2, b, n), dtype=torch.int8, device=ov.device)
     pick = torch.empty_like(off)
-    with torch.cuda.device(ov.device):
-        err = lib.viterbi_forward_launch(
-            ov.data_ptr(), ou.data_ptr(), lk.data_ptr(), dv.data_ptr(), du.data_ptr(), off.data_ptr(),
-            pick.data_ptr(), f, b, n, k, float(np.float32(log_init)), float(np.float32(log_stay)),
-            float(np.float32(log_switch)), torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"viterbi kernel launch failed: cudaError {err}")
-    COUNT.launches += 1
+    launch(
+        "viterbi", COUNT, lib.viterbi_forward_launch, ov.device,
+        ov.data_ptr(), ou.data_ptr(), lk.data_ptr(), dv.data_ptr(), du.data_ptr(), off.data_ptr(),
+        pick.data_ptr(), f, b, n, k, float(np.float32(log_init)), float(np.float32(log_stay)),
+        float(np.float32(log_switch)),
+    )
     return dv, du, off, pick
 
 

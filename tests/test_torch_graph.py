@@ -188,3 +188,69 @@ def test_compile_takes_the_reference_arguments(monkeypatch):
     assert calls == [1]
     final, _ = g.compile(donate=True, taps=(0,), chunked=True)(x)
     assert calls == [1] and torch.equal(final, donated)
+
+
+def _planned(form):
+    """A fresh stream (its plans and output shapes not yet resolved) and its chunk."""
+    if form == "logmel":
+        return log_mel_frontend(44100, 16000, 1024, 256, 128), CHUNK
+    if form == "fork":  # the dictation fork of test_torch_fork.py
+        f = tgraph.fork(
+            tgraph.chain(tgraph.Resample(48000, 16000, "kaiser"), input_rate=48000),
+            wire=tgraph.chain(tgraph.VadGate(320), tgraph.QuantizeI16(), input_rate=16000),
+            vad=tgraph.chain(tgraph.Vad(320), input_rate=16000),
+            features=tgraph.chain(tgraph.LogMelSpec(1024, 256, 128, center=False), input_rate=16000),
+        )
+        return f, f.chunk_granularity()
+    # the Gain branch waits in a delay line for the two resamplers' latency
+    mix = tgraph.Mix(((tgraph.Gain(0.0),), (tgraph.Resample(16000, 8000), tgraph.Resample(8000, 16000))))
+    g = tgraph.chain(mix, input_rate=16000)
+    return g, 4 * g.chunk_granularity()
+
+
+def _count_meta_steps(monkeypatch, stream) -> list:
+    """Patch the step of every node type ``stream`` holds (a Fork's graphs
+    and a Mix's branches included) to log the steps taken over meta tensors."""
+    graphs = [stream.trunk, *(g for _, g in stream.branches)] if isinstance(stream, tgraph.Fork) else [stream]
+    types = set()
+    while graphs:
+        for node in graphs.pop().nodes:
+            types.add(type(node))
+            if isinstance(node, tgraph.Mix):
+                graphs.extend(node._graphs())
+    log = []
+    for cls in types:
+        def step(self, carry, chunk, *args, _step=cls.step, **kwargs):
+            if chunk.device.type == "meta":
+                log.append(type(self).__name__)
+            return _step(self, carry, chunk, *args, **kwargs)
+
+        monkeypatch.setattr(cls, "step", step)
+    return log
+
+
+@pytest.mark.parametrize("form", ["logmel", "fork", "mix"])
+def test_schedule_and_shapes_are_resolved_once(monkeypatch, form):
+    """The streaming plan and the step output shapes are worked out once a
+    key: after a key's first ``init_state``, another ``init_state`` and the
+    steps take no step over meta tensors (for a Fork neither its trunk nor
+    a branch, for a Mix none of its branches), two passes stream bitwise
+    the same, and a new lead shape takes exactly one more shape pass."""
+    stream, chunk = _planned(form)
+    meta_steps = _count_meta_steps(monkeypatch, stream)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 4 * chunk)).astype(np.float32))
+    stream.init_state(chunk, (2,))
+    one_pass = len(meta_steps)
+    assert one_pass > 0
+    state = stream.init_state(chunk, (2,))
+    for c in range(3):
+        state, _ = stream.stream_step(state, x[:, c * chunk : (c + 1) * chunk])
+    first, second = stream.scan_stream(x, chunk), stream.scan_stream(x, chunk)
+    assert len(meta_steps) == one_pass
+    if form == "fork":
+        assert first.keys() == second.keys() == {"wire", "vad", "features"}
+        assert all(torch.equal(first[k], second[k]) for k in first)
+    else:
+        assert torch.equal(first, second)
+    stream.init_state(chunk, (3,))
+    assert len(meta_steps) == 2 * one_pass

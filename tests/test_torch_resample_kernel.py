@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from audioflow_torch.ops.kernels import melspec
+from audioflow_torch.ops.kernels import _build
 from audioflow_torch.ops.kernels import resample as kr
 
 rs = importlib.import_module("audioflow_torch.ops.resample")  # ops.resample is also a function's name
@@ -86,14 +86,14 @@ def test_wrapper_on_the_cpu_is_the_plain_version(lead):
 
 
 def test_row_stride():
-    """The rule both stream kernels' wrappers (melspec's holds it) read a chunk by."""
+    """The rule both stream kernels' wrappers read a chunk by (``_build`` holds it)."""
     wide = torch.zeros(2, 4, 100)
-    assert melspec._row_stride(torch.zeros(7)) == 7
-    assert melspec._row_stride(torch.zeros(3, 10)) == 10
-    assert melspec._row_stride(wide[..., 20:40]) == 100  # a column slice: rows 100 apart
-    assert melspec._row_stride(wide.reshape(8, 100)[:, 5:15]) == 100
-    assert melspec._row_stride(torch.zeros(1, 10).expand(5, 10)) == 0  # one row read five times
-    assert melspec._row_stride(wide.transpose(0, 1)[..., :10]) is None  # lead axes at no one stride
-    assert melspec._row_stride(wide[..., ::2]) is None  # samples not adjacent
-    t, stride = melspec._rows(wide.transpose(0, 1)[..., :10])
+    assert _build._row_stride(torch.zeros(7)) == 7
+    assert _build._row_stride(torch.zeros(3, 10)) == 10
+    assert _build._row_stride(wide[..., 20:40]) == 100  # a column slice: rows 100 apart
+    assert _build._row_stride(wide.reshape(8, 100)[:, 5:15]) == 100
+    assert _build._row_stride(torch.zeros(1, 10).expand(5, 10)) == 0  # one row read five times
+    assert _build._row_stride(wide.transpose(0, 1)[..., :10]) is None  # lead axes at no one stride
+    assert _build._row_stride(wide[..., ::2]) is None  # samples not adjacent
+    t, stride = _build._rows(wide.transpose(0, 1)[..., :10])
     assert t.is_contiguous() and stride == 10
