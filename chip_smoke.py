@@ -31,10 +31,13 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
    per source started together, with the seconds taken and ptxas's
    registers and spills;
 3. melspec kernel vs plain at the main path's step shape, with the path it
-   took (checked to be ``fft``), its dense path at n_fft 400, hop 160 on 8
-   rows, and the same function composed from ``torch.fft.rfft`` (cuFFT)
-   and plain torch timed beside it as a yardstick; the three timed by their
-   device time under torch.profiler, as in phase 9; and the streaming
+   took (checked to be ``fft``, its launches the staged runs'), its dense
+   path at n_fft 400, hop 160 on 8 rows, and the same function composed
+   from ``torch.fft.rfft`` (cuFFT) and plain torch timed beside it as a
+   yardstick; the three timed by their device time under torch.profiler,
+   as in phase 9; the offline launch at [512, 5888] and the stream step's
+   carry launch at [2048, 768 + 5120] checked faster than the kernel's
+   previous design (0.0474 and 0.1745 ms, :data:`MELSPEC_BEFORE_MS`); and the streaming
    resampler's kernel against its plain version at the benchmark's step
    shape (2048 rows, a 14,112-sample column slice and a carry of real
    samples, 44.1 to 16 kHz), the path it took (checked to be ``tile``),
@@ -42,7 +45,8 @@ benchmark batch, 64 x 10 s of a vibrato tone at 16 kHz (kernel
    plain version's and the cuBLAS banded matmul's alone (the yardstick the
    stream step no longer calls);
 4. melspec slice: shape, finiteness, launch counts (melspec and the
-   resampler, one a chunk each), and agreement with the plain two-node
+   resampler, one a chunk each; every melspec launch a carry launch that
+   took the staged runs), and agreement with the plain two-node
    graph (Spectrogram + MelProject);
 5. melspec timing: the slice, kernel path and plain path, in audio-seconds
    per second, timed with CUDA events;
@@ -279,6 +283,10 @@ SECONDS = 10.0
 # kernel vs plain version on white noise: both fp32 with TF32 off, the sums
 # taken in another order; 1e-4 in log-mel space (ln)
 KERNEL_TOL = 1e-4
+# the melspec FFT path's design before its staged runs, per launch, by
+# device time: offline at [512, 5888] and the carry launch at [2048, 768 +
+# 5120] (PERF.md section 6, row 1; NVIDIA H100 80GB HBM3, 700.00 W)
+MELSPEC_BEFORE_MS = {"offline": 0.0474, "carry": 0.1745}
 # resampler kernel vs plain version on white noise, max|d|: fp32 sums of up to
 # 117 products in another order (the kernel over a group's shifted taps,
 # cuBLAS over the dense band's tiles), a few 1e-6 at unit-normal inputs
@@ -2742,9 +2750,11 @@ def main() -> int:
     fb = on_device(cached_filterbank(513, 128, 16000, 0.0, None, False, "slaney"), dev)
     ms_path = melspec.kernel_path(1024)
     check(ms_path == "fft", f"melspec takes the {ms_path} path at n_fft 1024")
+    before_staged = melspec.COUNT.staged_launches
     got = melspec.mel_spectrogram(xs, cosb, sinb, win, fb, 256)
     want = melspec.mel_spectrogram_reference(xs, cosb, sinb, fb, 256)
     torch.cuda.synchronize()
+    check(melspec.COUNT.staged_launches == before_staged + 1, "the offline launch did not take the staged runs")
     check(got.shape == want.shape == (BATCH, 20, 128), f"shapes {got.shape}, {want.shape}")
     kernel_err = (got - want).abs().max().item()
     check(kernel_err <= KERNEL_TOL, f"kernel vs plain max|d| {kernel_err} > {KERNEL_TOL}")
@@ -2770,11 +2780,16 @@ def main() -> int:
     c_t = device_ms(mel_cufft, 20)
     k_ms, p_ms, c_ms = k_t[0], p_t[0], c_t[0]
     fb_nnz = int((fb != 0).sum())
-    print(f"phase 3 kernel vs plain at [{BATCH}, 5888] -> [{BATCH}, 20, 128], path {ms_path}: max|d| "
+    plan = melspec.fft_plan(1024, 256, 5888, 0, 128, melspec.prepare(cosb, sinb, win, fb, 256).max_band)
+    print(f"phase 3 kernel vs plain at [{BATCH}, 5888] -> [{BATCH}, 20, 128], path {ms_path} ({plan}): max|d| "
           f"{kernel_err:.3e} (tol {KERNEL_TOL}); dense path at n_fft 400, hop 160 on 8 rows: max|d| "
-          f"{dense_err:.3e}; kernel {timed(k_t)}, plain {timed(p_t)}, cuFFT composition {timed(c_t)} "
+          f"{dense_err:.3e}; kernel {timed(k_t)} against {MELSPEC_BEFORE_MS['offline']} ms before the staged "
+          f"runs, plain {timed(p_t)}, cuFFT composition {timed(c_t)} "
           f"(max|d| {cufft_err:.3e}; kernel vs cuFFT {kc_err:.3e}); filterbank {fb_nnz} nonzeros of "
           f"{fb.numel()} ({card})")
+    if BATCH == 512:
+        check(k_ms < MELSPEC_BEFORE_MS["offline"],
+              f"the offline melspec launch {k_ms} ms, not below {MELSPEC_BEFORE_MS['offline']} ms")
     del xs, xd, got, want, dense_args
 
     # the stream step's carry launch at the benchmark's shape: 2048 rows of
@@ -2803,9 +2818,13 @@ def main() -> int:
     st_bound, st_by = bound_ms(st_flops, st_bytes)
     print(f"phase 3 melspec carry launch at [2048, 768 + 5120] (chunk rows 5,359 apart) -> [2048, 20, 128]: max|d| "
           f"vs plain on the cat {carry_err:.3e}, bit-equal to the offline launch on the cat, new carry bit-equal; "
-          f"carry launch {timed(sk_t)}, {st_bound / sk_t[0]:.1%} of its bound {st_bound:.4f} ms ({st_by}: "
+          f"carry launch {timed(sk_t)} against {MELSPEC_BEFORE_MS['carry']} ms before the staged runs "
+          f"({melspec.fft_plan(1024, 256, 5888, 768, 128, spec.max_band)}), {st_bound / sk_t[0]:.1%} of its bound "
+          f"{st_bound:.4f} ms ({st_by}: "
           f"{st_bytes / 1e6:.1f} MB); offline launch on the cat {timed(so_t)}; the cat it spares {timed(sc_t)} "
           f"({card})")
+    check(sk_t[0] < MELSPEC_BEFORE_MS["carry"],
+          f"the melspec carry launch {sk_t[0]} ms, not below {MELSPEC_BEFORE_MS['carry']} ms")
     del st_carry, st_chunk, st_new, st_got, st_buf, st_want
 
     # the streaming resampler's kernel at the benchmark's step shape: a
@@ -2855,13 +2874,16 @@ def main() -> int:
     lat = graph.stream_latency(chunk)
     n_frames = n_chunks * graph.chunk_lens(chunk)[-1]
 
-    melspec.COUNT.launches = melspec.COUNT.carry_launches = resample_kernel.COUNT.launches = 0
+    melspec.COUNT.launches = melspec.COUNT.carry_launches = melspec.COUNT.staged_launches = 0
+    resample_kernel.COUNT.launches = 0
     y = graph.scan_stream(x, chunk)
     torch.cuda.synchronize()
     launches, rs_launches = melspec.COUNT.launches, resample_kernel.COUNT.launches
     check(launches == n_chunks, f"melspec launched {launches} times for {n_chunks} chunks")
     check(melspec.COUNT.carry_launches == launches, f"{melspec.COUNT.carry_launches} of {launches} melspec "
           "launches read their carry in place")
+    check(melspec.COUNT.staged_launches == launches, f"{melspec.COUNT.staged_launches} of {launches} melspec "
+          "launches took the staged runs")
     check(rs_launches == n_chunks, f"the resampler launched {rs_launches} times for {n_chunks} chunks")
     check(tuple(y.shape) == (BATCH, n_frames, 128), f"slice output shape {tuple(y.shape)}")
     check(bool(torch.isfinite(y).all()), "non-finite log-mel values")
@@ -2869,7 +2891,8 @@ def main() -> int:
     slice_err = (y[:, lat:] - y_plain[:, lat:]).abs().max().item()
     check(slice_err <= SLICE_TOL, f"slice vs plain graph max|d| {slice_err} > {SLICE_TOL}")
     print(f"phase 4 slice: {BATCH} x {x.shape[-1]} samples, chunk {chunk} -> {tuple(y.shape)}, "
-          f"finite, melspec launches {launches} = carry launches = resample launches {rs_launches} = chunks "
+          f"finite, melspec launches {launches} = carry launches = staged launches = resample launches "
+          f"{rs_launches} = chunks "
           f"{n_chunks}, "
           f"vs plain graph from frame "
           f"{lat}: max|d| {slice_err:.3e} (tol {SLICE_TOL})")

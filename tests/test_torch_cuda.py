@@ -41,7 +41,11 @@ def _inputs(shape, n_fft, n_mels, window, device, win_length=None):
 
 # the stream step's shape (FFT path); an n_fft that is not a multiple of 4
 # with an uneven hop (dense); Whisper's and Kaldi's 400 (dense); a 2048
-# transform (FFT); one frame of the povey window; a zero-padded window
+# transform (FFT); one frame of the povey window; a zero-padded window. The
+# FFT path's staged runs: a 160,000-sample row (32 runs a row); 1,000 rows,
+# which no grid of two blocks an SM divides; hop > n_fft (a run a frame);
+# hops that are not multiples of 4; n_fft 16, whose 8 mels hold an empty
+# column, and one frame a row (several rows a step)
 @pytest.mark.parametrize(
     "shape,n_fft,hop,n_mels,window,log,win_length,path",
     [
@@ -51,16 +55,24 @@ def _inputs(shape, n_fft, n_mels, window, device, win_length=None):
         ((2, 9000), 2048, 512, 64, "hann", "log10", None, "fft"),
         ((5, 1024), 1024, 256, 128, "povey", "ln", None, "fft"),
         ((3, 6000), 512, 160, 64, "hann", "db", 400, "fft"),
+        ((2, 160000), 1024, 256, 128, "hann", "ln", None, "fft"),
+        ((1000, 5888), 1024, 256, 128, "hann", "ln", None, "fft"),
+        ((3, 9000), 512, 700, 64, "hann", "ln", None, "fft"),
+        ((4, 7001), 1024, 259, 128, "hann", "ln", None, "fft"),
+        ((3, 4001), 2048, 250, 128, "hann", "ln", None, "fft"),
+        ((3, 400), 16, 3, 8, "hann", "ln", None, "fft"),
+        ((9, 16), 16, 4, 4, "hamming", None, None, "fft"),
     ],
 )
 def test_kernel_matches_plain(cuda_device, shape, n_fft, hop, n_mels, window, log, win_length, path):
     x, cosb, sinb, w, fb = _inputs(shape, n_fft, n_mels, window, cuda_device, win_length)
     assert melspec.kernel_path(n_fft) == path
-    before, before_carry = melspec.COUNT.launches, melspec.COUNT.carry_launches
+    before = melspec.COUNT.launches, melspec.COUNT.carry_launches, melspec.COUNT.staged_launches
     got = melspec.mel_spectrogram(x, cosb, sinb, w, fb, hop, log=log)
     torch.cuda.synchronize()
-    assert melspec.COUNT.launches == before + 1
-    assert melspec.COUNT.carry_launches == before_carry  # the offline launch reads no carry
+    # one launch, which reads no carry; an FFT-path launch takes the staged runs
+    assert (melspec.COUNT.launches, melspec.COUNT.carry_launches, melspec.COUNT.staged_launches) == (
+        before[0] + 1, before[1], before[2] + (path == "fft"))
     want = melspec.mel_spectrogram_reference(x, cosb, sinb, fb, hop, log=log)
     assert got.shape == want.shape
     if log is None:
@@ -121,9 +133,14 @@ def _carry_and_chunk(rows, carry_len, n, width, device, seed=0):
 
 
 # the cell's step (768 carried + 5120 new samples at n_fft 1024) with the
-# chunk a narrow view of rows 5,359 apart (odd, as graph.align's buffer
-# leaves it) and 5,376 (a multiple of 4); a chunk shorter than the carry;
-# n_fft 400, hop 160 (the dense path) on a narrow view and on a short chunk
+# chunk a narrow view of rows 5,359, 5,376, 5,377 and 5,378 apart (each
+# row's chunk 3, 0, 1 and 2 floats, in turn, off a 16-byte boundary; odd, as
+# graph.align's buffer leaves it); a chunk shorter than the carry; n_fft 400,
+# hop 160 (the dense path) on a narrow view and on a short chunk. The FFT
+# path's staged runs: 1,000 rows, which no grid of two blocks an SM divides;
+# rows of four runs; carries shorter than n_fft - hop (n_fft 1024 and 2048);
+# hop > n_fft (a run a frame), with a carry inside the last run's span and
+# one that starts before it; n_fft 16 at an odd hop
 @pytest.mark.parametrize(
     "rows,carry_len,n,width,n_fft,hop,n_mels,path",
     [
@@ -132,6 +149,15 @@ def _carry_and_chunk(rows, carry_len, n, width, device, seed=0):
         (64, 768, 256, 256, 1024, 256, 128, "fft"),
         (64, 320, 1600, 1759, 400, 160, 80, "dense"),
         (64, 320, 160, 160, 400, 160, 80, "dense"),
+        (2048, 768, 5120, 5377, 1024, 256, 128, "fft"),
+        (2048, 768, 5120, 5378, 1024, 256, 128, "fft"),
+        (1000, 768, 5120, 5359, 1024, 256, 128, "fft"),
+        (16, 768, 20000, 20001, 1024, 256, 128, "fft"),
+        (64, 100, 5120, 5121, 1024, 256, 128, "fft"),
+        (8, 768, 5120, 5123, 2048, 512, 64, "fft"),
+        (64, 1000, 3000, 3001, 512, 700, 64, "fft"),
+        (16, 3000, 1000, 1002, 512, 700, 64, "fft"),
+        (8, 15, 100, 103, 16, 3, 8, "fft"),
     ],
 )
 def test_carry_launch_matches_plain(cuda_device, rows, carry_len, n, width, n_fft, hop, n_mels, path):
@@ -140,10 +166,11 @@ def test_carry_launch_matches_plain(cuda_device, rows, carry_len, n, width, n_ff
     carry, chunk = _carry_and_chunk(rows, carry_len, n, width, cuda_device)
     assert chunk.stride(0) == width
     spec = melspec.prepare(cosb, sinb, w, fb, hop)
-    before = melspec.COUNT.launches, melspec.COUNT.carry_launches
+    before = melspec.COUNT.launches, melspec.COUNT.carry_launches, melspec.COUNT.staged_launches
     new_carry, got = spec.step(carry, chunk)
     torch.cuda.synchronize()
-    assert (melspec.COUNT.launches, melspec.COUNT.carry_launches) == (before[0] + 1, before[1] + 1)
+    assert (melspec.COUNT.launches, melspec.COUNT.carry_launches, melspec.COUNT.staged_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + (path == "fft"))
     buf = torch.cat([carry, chunk], dim=-1)
     # each frame's arithmetic is the offline launch's on the concatenation
     assert torch.equal(_bits(got), _bits(spec(buf)))
@@ -155,6 +182,19 @@ def test_carry_launch_matches_plain(cuda_device, rows, carry_len, n, width, n_ff
     # over 64 rows of white noise its largest gap in ln units read 1.7e-4,
     # at bins far below their frame's loudest
     assert (got - want).abs().max().item() <= (1e-4 if path == "fft" else 5e-4)
+
+
+def test_carry_launch_repeats_its_bits(cuda_device):
+    """Two launches on the same inputs give the same bits: each frame's
+    FFT and band sums run in one fixed order, whichever block and warp take
+    it, and nothing is atomic."""
+    _, cosb, sinb, w, fb = _inputs((1, 1024), 1024, 128, "hann", cuda_device)
+    spec = melspec.prepare(cosb, sinb, w, fb, 256)
+    carry, chunk = _carry_and_chunk(1000, 768, 5120, 5359, cuda_device, seed=3)
+    first = spec.step(carry, chunk)
+    second = spec.step(carry, chunk)
+    for a, b in zip(first, second):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 def test_carry_launch_new_carry_is_its_own(cuda_device):

@@ -113,8 +113,9 @@ def test_device_bands_follow_the_tensor():
         a = melspec._device_bands(fb)
         assert melspec._device_bands(fb)[0] is a[0]
         fb[:, 3] = 0.0
-        layout, _ = melspec._device_bands(fb)
+        layout, _, longest = melspec._device_bands(fb)
         assert layout[1, 3].item() == 0 and a[0][1, 3].item() > 0
+        assert longest == int(layout[1].max())
     finally:
         drop_bands_of(fb)
 
@@ -139,7 +140,32 @@ def test_kernel_paths():
         assert griffinlim.kernel_path(n_fft, hop) == "dense", (n_fft, hop)
     assert griffinlim.fft_tile(1024, 256) == 16 and griffinlim.smem_bytes(1024, 256) == 57_344
     assert griffinlim.smem_bytes(2048, 1024) <= 232_448  # the largest rows fit
-    assert melspec.fft_frames(1024) == 8 and melspec.smem_bytes(1024) == 37_888
+    # the benchmark's stream step: a run a row of 20 frames (its 5,888
+    # samples staged, and room for their 0-3 float offset), ten warps a block,
+    # the slaney weights (longest band 24) staged; two blocks an SM
+    assert melspec.fft_plan(1024, 256, 5888, 768, 128, 24) == (20, 1, 1, 10, 5892, 1, 115_376)
+    assert melspec.dense_smem_bytes(400) == 38_464
+
+
+@pytest.mark.parametrize("n_fft", [16, 32, 64, 128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("hop_of", ["1", "100", "160", "256", "n_fft", "2 n_fft"])
+def test_melspec_fft_plan_fits(n_fft, hop_of):
+    """The FFT path's plan for every transform length and hop: runs of one
+    frame or more, that cover each row, and a block within shared memory,
+    for one-frame rows, the benchmark's rows, a 160,000-sample row and a
+    600 s recording, with and without a carry, for a slaney-like bank and
+    for a dense one (whose weights, at the larger n_fft, leave shared
+    memory for device memory)."""
+    hop = {"n_fft": n_fft, "2 n_fft": 2 * n_fft}.get(hop_of) or int(hop_of)
+    bins = n_fft // 2 + 1
+    for t, c in ((n_fft, 0), (5888, 768), (160_000, 0), (9_600_000, n_fft - 1)):
+        for n_mels, max_band in ((128, min(24, bins)), (128, bins)):
+            plan = melspec.fft_plan(n_fft, hop, max(t, n_fft), min(c, t), n_mels, max_band)
+            n_frames = (max(t, n_fft) - n_fft) // hop + 1
+            assert plan.frames >= 1 and plan.warps >= 1 and plan.group >= 1
+            assert plan.runs_row * plan.frames >= n_frames > (plan.runs_row - 1) * plan.frames
+            assert plan.stage >= (plan.frames - 1) * hop + n_fft + 3  # the span and its 0-3 float offset
+            assert plan.smem <= 232_448, (t, c, n_mels, max_band, plan)
 
 
 def _supported_before(n_fft, hop, win_length=None):
